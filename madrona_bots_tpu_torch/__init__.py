@@ -1,0 +1,18 @@
+"""PyTorch / CUDA port of madrona_bots_tpu for an NVIDIA H100.
+
+The world rollout (init_state, step, shift_observations, construct_obs) with
+the systems step and the raycast sensor as hand-written CUDA kernels
+(`csrc/`). Entry points run on CUDA unless given `device="cpu"`, where the
+kernels' plain PyTorch versions run. Imports torch, never jax.
+"""
+
+from madrona_bots_tpu_torch.config import EnvConfig, RewardSetting
+from madrona_bots_tpu_torch.env.env import (rollout, sensor_pass, set_actions,
+                                            shift_observations, step, step_systems)
+from madrona_bots_tpu_torch.env.state import (WorldState, init_state,
+                                              state_from_numpy, state_to_numpy)
+from madrona_bots_tpu_torch.learn.obs import construct_obs
+
+__all__ = ["EnvConfig", "RewardSetting", "WorldState", "init_state", "step",
+           "step_systems", "sensor_pass", "shift_observations", "set_actions",
+           "rollout", "construct_obs", "state_from_numpy", "state_to_numpy"]

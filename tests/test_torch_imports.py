@@ -1,0 +1,64 @@
+"""The port imports torch, never jax, and nothing of the JAX package; its
+entry points default to CUDA and never fall back to the CPU quietly."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import madrona_bots_tpu_torch
+from madrona_bots_tpu_torch import EnvConfig, init_state
+from madrona_bots_tpu_torch.ops import _build
+
+PKG = pathlib.Path(madrona_bots_tpu_torch.__file__).parent
+REPO = PKG.parent
+MODULES = sorted("madrona_bots_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+                 for p in PKG.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+              "or m == 'flax' or m == 'madrona_bots_tpu' "
+              "or m.startswith('madrona_bots_tpu.')]\n"
+              "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO))
+                                        for p in PKG.rglob("*.py")) + ["chip_smoke.py"])
+def test_source_imports_no_jax_package(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "madrona_bots_tpu"), (path, n)
+
+
+def test_entry_point_defaults_to_cuda():
+    cfg = EnvConfig(num_worlds=2, init_agents=8, max_agents=16)
+    if torch.cuda.is_available():
+        assert init_state(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_state(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_state(cfg, device="cuda")
+    assert init_state(cfg, device="cpu").device.type == "cpu"
+
+
+def test_kernel_library_names_follow_sources():
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").exists()
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}_")
+    assert _build.library_path("systems") != _build.library_path("raycast")
