@@ -1,20 +1,35 @@
-"""Drive the PyTorch port's world rollout on one CUDA card and check it.
+"""Drive the PyTorch port's world rollout and A2C training on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit and no result line):
-  1. build both kernels from madrona_bots_tpu_torch/csrc (nvcc, in parallel);
+  1. build the three kernels from madrona_bots_tpu_torch/csrc (nvcc, in
+     parallel);
   2. the systems kernel against its plain version on the same inputs, at
      8192 worlds x 128 slots after 16 plain steps of heavy shoot/breed;
-  3. the raycast kernel against its plain version on those states and on a
-     saturated one (128 agents per world);
-  4. the main path: init_state, 64 timed ticks of set_actions -> step ->
+  3. the raycast kernel against its plain version on those states, on a
+     saturated one (128 agents per world), and at the shapes where the JAX
+     package runs its packed (8 x 32) and blocked (4 x 33) kernels, each
+     with a few train ticks at that shape as its main path;
+  4. the row-gather kernel against its plain version on the bf16 A2C tick's
+     seven fields at 8192 x 128 with 10 learner rows per class, on the
+     stepped and on the saturated state (rows dropped);
+  5. the world rollout: init_state, 64 timed ticks of set_actions -> step ->
      shift_observations, construct_obs; each kernel must launch once a tick;
      16 ticks on the kernel and the plain path must agree;
-  5. reference checks on small inputs: the kernel path on the card against
-     the plain path on the CPU, and the 50-step digests of
-     tests/golden_trajectory.json (recorded from the JAX package);
-  6. each kernel's time per launch, its plain version's time and its bound.
+  6. the training tick of the CLI at 8192 x 128, hidden 128, bf16, 10
+     learner rows per class: 8 warm-up and 32 timed ticks, one launch of
+     each kernel per tick; 4 ticks on the kernel and the plain path agree;
+  7. reference checks on small inputs: the kernel path on the card against
+     the plain path on the CPU (world steps and an f32 train tick), and the
+     50-step digests of tests/golden_trajectory.json (recorded from the JAX
+     package);
+  8. the training CLI as a subprocess at --num_worlds 8: create a universe,
+     then restore it;
+  9. each kernel's time per launch, its plain version's time, its bound and
+     (row gather) one PyTorch gather's time; where a rollout tick's and a
+     train tick's time goes.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -38,7 +53,11 @@ FP32_FLOPS = 67e12             # H100 SXM FP32 outside the tensor cores
 SURR_RTOL, SURR_ATOL = 1e-5, 1e-4
 W, A, INIT = 8192, 128, 32
 TICKS = 64
+HIDDEN, ROWS = 128, 10         # bench.py's A2C shape: hidden 128, 10 slots
+TRAIN_WARM, TRAIN_TICKS = 8, 32
+LR = 3e-4
 DEVICE = "cuda"
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -61,7 +80,7 @@ def main() -> int:
     from madrona_bots_tpu_torch.env import raycast as raycast_plain
     from madrona_bots_tpu_torch.env.state import FIELDS, state_to_numpy
     from madrona_bots_tpu_torch.learn.obs import construct_obs
-    from madrona_bots_tpu_torch.ops import _build, raycast_cuda, step_cuda
+    from madrona_bots_tpu_torch.ops import _build, raycast_cuda, row_gather_cuda, step_cuda
 
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,7 +93,8 @@ def main() -> int:
 
     # ---- 1. build ----
     secs, ptxas = _build.build(verbose=True)
-    log(f"[build] both kernels in {secs:.1f} s")
+    log(f"[build] {len(_build.SOURCES)} kernels ({', '.join(_build.SOURCES)}) "
+        f"in {secs:.1f} s")
     for line in ptxas.splitlines():
         if "registers" in line or line.startswith("["):
             log("  " + line.strip())
@@ -162,9 +182,27 @@ def main() -> int:
                                    for g, w in zip(got_r, want_r)])
     ray_inputs = (state.pos, state.heading, state.alive, state.species)
     sat_inputs = (sat.pos, sat.heading, sat.alive, sat.species, sat_cfg)
+    small_rays = raycast_small_shapes(dev, gen)
+
+    # ---- 4. row-gather kernel against its plain version ----
+    gather_err = 0.0
+    for label, s_ in (("after_16_steps", state), ("saturated", sat)):
+        kslot, fields, dropped, members = gather_inputs(s_, cfg.num_species)
+        got_g = row_gather_cuda.compact_fields(kslot, fields)
+        want_g = row_gather_cuda.compact_fields_reference(kslot, fields)
+        torch.cuda.synchronize()
+        mism = [int((g.view(torch.int16) != w.view(torch.int16)).sum())
+                for g, w in zip(got_g, want_g)]
+        log(f"[row_gather] {label}: 7 fields, kslot {tuple(kslot.shape)}, "
+            f"{int((kslot >= 0).sum())} rows gathered, {dropped} of {members} class "
+            f"rows dropped; kernel vs plain bit mismatches per field {mism}")
+        check(sum(mism) == 0, f"row_gather {label}: {mism}")
+        gather_err = max([gather_err] + [float((g.float() - w.float()).abs().max())
+                                         for g, w in zip(got_g, want_g)])
+    check(dropped > 0, "row_gather saturated: no rows dropped")
     del sat, ray_cases
 
-    # ---- 4. the main path ----
+    # ---- 5. the world rollout ----
     main = init_state(cfg, seed=0, device=dev)
     for _ in range(8):                                   # warm-up
         main = env_mod.shift_observations(
@@ -212,7 +250,10 @@ def main() -> int:
     check(sum(diff.values()) == 0 and surr_bad == 0, f"kernel vs plain ticks: {diff}")
     del k_state, p_state, main, obs
 
-    # ---- 5. reference checks on small inputs ----
+    # ---- 6. the training tick at the CLI's bench shape ----
+    train = train_phase(cfg, dev)
+
+    # ---- 7. reference checks on small inputs ----
     small = EnvConfig(num_worlds=4, init_agents=32, max_agents=64)
     rng = np.random.default_rng(11)
     sg, sc = init_state(small, 11, dev), init_state(small, 11, "cpu")
@@ -232,8 +273,12 @@ def main() -> int:
     log("[reference] 30 heavy ticks at 4x64: card kernels == CPU plain path")
     golden_ok = check_golden(EnvConfig, init_state, step, env_mod, dev)
     log(f"[reference] tests/golden_trajectory.json: {golden_ok} steps match")
+    reference_train_tick(dev)
 
-    # ---- 6. kernel times and bounds ----
+    # ---- 8. the training CLI ----
+    cli_phase()
+
+    # ---- 9. kernel times and bounds ----
     def timed(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -248,11 +293,8 @@ def main() -> int:
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    n_alive = state.alive.sum(dim=1).to(torch.float64)
-    ray_tests = float((n_alive * (n_alive - 1)).sum())
-    ray_flops = ray_tests * (33 * 8 + 6)     # per ray test 8, per pair 6
-    out_r = raycast_cuda.raycast(*ray_inputs, cfg)
-    ray_bytes = nbytes(ray_inputs) + nbytes(out_r) + 4 * cfg.sensor_size
+    ray_bytes, ray_flops = raycast_bound(ray_inputs, raycast_cuda.raycast(*ray_inputs, cfg),
+                                         cfg)
     sys_bytes = nbytes(sys_inputs) + nbytes(got)
     # The bilinear `surrounding` takes 32 FP32 ops per slot alive after
     # births; the rest of the kernel is integer work.
@@ -279,7 +321,7 @@ def main() -> int:
         ops_ms = flops / FP32_FLOPS * 1e3
         kernels.append({
             "name": name, "route": route, "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": 0.0, "ms": ms,
+            "launches": train["launches"][name], "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "bytes": nbyte, "fp32_ops": flops})
@@ -288,14 +330,19 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(float((g.float() - w.float()).abs().max())
                                     for g, w in zip(got, want))
     kernels[1]["max_abs_err"] = ray_err
+    kernels += [small_kernel_row(r, timed) for r in small_rays]
+    kernels.append(row_gather_row(train["state"], cfg, timed, gather_err,
+                                  train["launches"]["row_gather"]))
     for k in kernels:
+        lib = "" if k["library_ms"] is None else f", library {k['library_ms']:.4f} ms"
         log(f"[time] {k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
-            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}){lib}")
     log(f"[time] raycast at 128 agents per world: "
         f"{timed(lambda: raycast_cuda.raycast(*sat_inputs), 10):.4f} ms/launch")
 
-    # ---- 7. where a tick's time goes ----
+    # ---- where a tick's time goes ----
     where_the_time_goes(state, sys_inputs, ray_inputs, cfg, one_hot_actions)
+    train_where(train, cfg)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -305,6 +352,387 @@ def main() -> int:
     return 0
 
 
+def host_ms(fn, reps=5):
+    """Host-clock ms per call of `fn`, after one warm-up call, synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def raycast_bound(inputs, outputs, cfg):
+    """(bytes, FP32 ops) the raycast must move and do on these inputs: each
+    world with n alive agents runs n (n - 1) pairs of 6 ops and 33 ray tests
+    of 8 ops each."""
+    n_alive = inputs[2].sum(dim=1).to(torch.float64)
+    flops = float((n_alive * (n_alive - 1)).sum()) * (33 * 8 + 6)
+    nbyte = sum(t.numel() * t.element_size() for t in tuple(inputs) + tuple(outputs))
+    return nbyte + 4 * cfg.sensor_size, flops
+
+
+def raycast_small_shapes(dev, gen):
+    """The raycast kernel at the shapes where the JAX package runs its packed
+    kernel (8 worlds x 32 slots) and its blocked kernel (4 x 33, 3 species):
+    kernel against plain on random populations, then 4 f32 train ticks at the
+    shape, its main path there, with the launches counted."""
+    from madrona_bots_tpu_torch import EnvConfig, init_state, rng
+    from madrona_bots_tpu_torch.env import raycast as raycast_plain
+    from madrona_bots_tpu_torch.learn import a2c
+    from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+    from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+    from madrona_bots_tpu_torch.ops import raycast_cuda
+
+    rows = []
+    for name, replaces, (w, a, ns, init) in (
+            ("raycast_packed", "madrona_bots_tpu/ops/raycast_pallas.py:308", (8, 32, 4, 16)),
+            ("raycast_blocked", "madrona_bots_tpu/ops/raycast_pallas.py:51", (4, 33, 3, 33))):
+        c = EnvConfig(num_worlds=w, init_agents=init, max_agents=a, num_species=ns)
+        lims = torch.tensor([c.world_lim_x - 1.0, c.world_lim_y - 1.0], device=dev)
+        err, mism = 0.0, {}
+        for density in (0.3, 0.9, 1.0):
+            args = (torch.rand((w, a, 2), generator=gen, device=dev) * lims,
+                    torch.rand((w, a), generator=gen, device=dev) * 6.28,
+                    torch.rand((w, a), generator=gen, device=dev) < density,
+                    torch.randint(1, ns + 1, (w, a), generator=gen, device=dev,
+                                  dtype=torch.int32))
+            got = raycast_cuda.raycast(*args, c)
+            want = raycast_plain.raycast(*args, c)
+            torch.cuda.synchronize()
+            mism[density] = sum(int((g != v).sum()) for g, v in zip(got, want))
+            err = max([err] + [float((g.float() - v.float()).abs().max())
+                               for g, v in zip(got, want)])
+        gen_m = SpeciesNetGenerator(c.obs_dim, 6, 32, c.hidden_state_dim, seed=1)
+        models = [ActorCritic.from_generator(gen_m, device=dev) for _ in range(ns)]
+        tick, opt = a2c.make_train_tick(models, c, lr=LR)
+        ts = a2c.init_train_states(models, rng.key(2, dev), opt)
+        st = init_state(c, 4, dev)
+        torch.cuda.synchronize()
+        raycast_cuda.launches = 0
+        for t in range(4):
+            st, ts, m = tick(st, ts, rng.key(50 + t, dev))
+        torch.cuda.synchronize()
+        launches = raycast_cuda.launches
+        log(f"[raycast] {name} shape {w}x{a} ({ns} species): kernel vs plain mismatches "
+            f"by density {json.dumps(mism)}; 4 train ticks at this shape launched it "
+            f"{launches} times, alive {int(st.alive.sum())}")
+        check(sum(mism.values()) == 0, f"raycast {name}: {mism}")
+        check(launches == 4, f"raycast {name}: {launches} launches in 4 ticks")
+        check(all(bool(torch.isfinite(v)) for v in m.values()), f"{name}: train metrics")
+        rows.append(dict(name=name, replaces=replaces, cfg=c, inputs=args,
+                         launches=launches, err=err))
+    return rows
+
+
+def small_kernel_row(r, timed):
+    from madrona_bots_tpu_torch.env import raycast as raycast_plain
+    from madrona_bots_tpu_torch.ops import raycast_cuda
+
+    c, args = r["cfg"], r["inputs"]
+    ms = timed(lambda: raycast_cuda.raycast(*args, c), 50)
+    plain_ms = timed(lambda: raycast_plain.raycast(*args, c), 5)
+    nbyte, flops = raycast_bound(args, raycast_cuda.raycast(*args, c), c)
+    bytes_ms, ops_ms = nbyte / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return {"name": r["name"], "route": "cuda",
+            "source": "madrona_bots_tpu_torch/csrc/raycast.cu", "replaces": r["replaces"],
+            "launches": r["launches"], "max_abs_err": r["err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "bytes": nbyte, "fp32_ops": flops,
+            "shape": [c.num_worlds, c.max_agents]}
+
+
+def gather_inputs(state, NS, rows=ROWS):
+    """The bf16 tick's row-gather inputs for `state`: (kslot, the seven
+    fields, class rows dropped, class rows)."""
+    from madrona_bots_tpu_torch.learn import a2c
+    from madrona_bots_tpu_torch.learn.pack import compact_slots, kslot_from_class_slots
+
+    m_full, lm_full = a2c.class_masks(state, NS)
+    Wn, An = m_full.shape
+    m = m_full.reshape(Wn, An // NS, NS).permute(2, 0, 1).reshape(NS * Wn, An // NS)
+    slot, valid, keep = compact_slots(m, rows)
+    kslot = kslot_from_class_slots(slot, valid, Wn, NS)
+    return (kslot, a2c.learner_fields(state, lm_full), int(m.sum() - keep.sum()),
+            int(m.sum()))
+
+
+def row_gather_row(state, cfg, timed, err, launches):
+    """Row 5 of the kernel table, timed on the trained state's fields. The
+    library call is one torch.gather of the same rows from the seven fields
+    concatenated in bf16 beforehand."""
+    from madrona_bots_tpu_torch.ops import row_gather_cuda
+
+    kslot, fields, _, _ = gather_inputs(state, cfg.num_species)
+    ms = timed(lambda: row_gather_cuda.compact_fields(kslot, fields), 50)
+    plain_ms = timed(lambda: row_gather_cuda.compact_fields_reference(kslot, fields), 10)
+    payload = torch.cat([f.to(torch.bfloat16) for f in fields], dim=-1)
+    idx = kslot.clamp(min=0).long()[:, :, None].expand(-1, -1, payload.shape[-1]).contiguous()
+    library_ms = timed(lambda: torch.gather(payload, 1, idx), 50)
+    Wn, K = kslot.shape
+    gathered = int((kslot >= 0).sum())
+    nbyte = (kslot.numel() * 4
+             + gathered * sum(f.shape[2] * f.element_size() for f in fields)
+             + Wn * K * sum(f.shape[2] for f in fields) * 2)
+    return {"name": "row_gather", "route": "cuda",
+            "source": "madrona_bots_tpu_torch/csrc/row_gather.cu",
+            "replaces": "madrona_bots_tpu/ops/row_gather.py:50", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbyte / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms, "bytes": nbyte, "rows_gathered": gathered}
+
+
+def clone_train_states(tstates):
+    from madrona_bots_tpu_torch.learn.a2c import AdamState, SpeciesTrainState
+    return tuple(SpeciesTrainState(t.params.clone(), AdamState(*(x.clone() for x in t.opt_state)))
+                 for t in tstates)
+
+
+def train_phase(cfg, dev) -> dict:
+    """The CLI's train tick at the bench shape: bf16 forwards, 10 learner
+    rows per class. 8 warm-up and 32 timed ticks (CUDA events), each ending
+    in the CLI's one copy of the stacked metrics; then 4 ticks on the kernel
+    and on the plain path from cloned state, parameters and key."""
+    from madrona_bots_tpu_torch import init_state, rng
+    from madrona_bots_tpu_torch.config import NUM_ACTIONS
+    from madrona_bots_tpu_torch.env.state import FIELDS
+    from madrona_bots_tpu_torch.learn import a2c
+    from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+    from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+    from madrona_bots_tpu_torch.ops import raycast_cuda, row_gather_cuda, step_cuda
+
+    gen = SpeciesNetGenerator(cfg.obs_dim, NUM_ACTIONS, HIDDEN, cfg.hidden_state_dim, seed=0)
+    models = [ActorCritic.from_generator(gen, device=dev) for _ in range(cfg.num_species)]
+    kw = dict(lr=LR, compute_dtype=torch.bfloat16, learner_slots_per_class=ROWS)
+    tick, opt = a2c.make_train_tick(models, cfg, **kw)
+    tstates = a2c.init_train_states(models, rng.key(0, dev), opt)
+    p0 = [t.params.clone() for t in tstates]
+    state = init_state(cfg, 0, dev)
+    key = rng.key(1, dev)
+
+    def run(n, state, tstates, key, host_rows):
+        m = None
+        for _ in range(n):
+            key, sub = rng.split(key, 2)
+            state, tstates, m = tick(state, tstates, sub)
+            host_rows.append(a2c.stack_metrics(m).cpu())   # the CLI's one copy
+        return state, tstates, key, m
+
+    t0 = time.perf_counter()
+    state, tstates, key, m = run(TRAIN_WARM, state, tstates, key, [])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    step_cuda.launches = raycast_cuda.launches = row_gather_cuda.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host_rows = []
+    host0 = time.perf_counter()
+    start.record()
+    state, tstates, key, m = run(TRAIN_TICKS, state, tstates, key, host_rows)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms_tick = (time.perf_counter() - host0) * 1e3 / TRAIN_TICKS
+    launches = {"systems": step_cuda.launches, "raycast": raycast_cuda.launches,
+                "row_gather": row_gather_cuda.launches}
+    ms = start.elapsed_time(end) / TRAIN_TICKS
+    log(f"[train] {TRAIN_TICKS} ticks at {cfg.num_worlds}x{cfg.max_agents}, hidden {HIDDEN}, "
+        f"bf16, {ROWS} learner rows per class (warm-up {TRAIN_WARM} ticks {warm_s:.1f} s): "
+        f"{ms:.3f} ms/tick, {cfg.num_worlds * 1000.0 / ms:.1f} env-steps/s (CUDA events; "
+        f"host clock {host_ms_tick:.3f} ms/tick)")
+    log(f"[train] launches {json.dumps(launches)}")
+    check(launches == {k: TRAIN_TICKS for k in launches}, f"train launches {launches}")
+    hist = torch.stack(host_rows)
+    names = list(m)
+    check(bool(torch.isfinite(hist).all()), "train metrics not finite")
+    moved = max(float((t.params - p).abs().max()) for t, p in zip(tstates, p0))
+    check(moved > 0, "train: parameters did not move")
+    col = {n: i for i, n in enumerate(names)}
+    NS = cfg.num_species
+    count = sum(float(hist[:, col[f"species_{s}_count"]].sum()) for s in range(1, NS + 1))
+    dropped = sum(float(hist[:, col[f"species_{s}_dropped_rows"]].sum())
+                  for s in range(1, NS + 1))
+    last = {n: round(float(v), 5) for n, v in zip(names, hist[-1])
+            if n.startswith("species_1_")}
+    log(f"[train] metrics finite; params moved (max |delta| {moved:.3e}); dropped-row share "
+        f"{dropped / max(count, 1.0):.6f} ({dropped:.0f} of {count:.0f} class rows); "
+        f"species 1 last tick {json.dumps(last)}")
+
+    tick_plain, _ = a2c.make_train_tick(models, cfg, use_kernels=False, **kw)
+    ks, ps = state.clone(), state.clone()
+    kts, pts = clone_train_states(tstates), clone_train_states(tstates)
+    for t in range(4):
+        sub = rng.fold_in(key, 1000 + t)
+        ks, kts, _ = tick(ks, kts, sub)
+        ps, pts, _ = tick_plain(ps, pts, sub)
+    torch.cuda.synchronize()
+    diff = {f: int((getattr(ks, f) != getattr(ps, f)).sum()) for f in FIELDS}
+    pdiff = max(float((a.params - b.params).abs().max()) for a, b in zip(kts, pts))
+    log(f"[train] 4 ticks kernels vs plain: {sum(diff.values())} state mismatches "
+        f"(actions {diff['action']}, hidden {diff['hidden']}); params max |diff| {pdiff:.3e}")
+    check(sum(diff.values()) == 0, f"train kernel vs plain: {diff}")
+    check(pdiff == 0.0 or pdiff < 1e-6, f"train kernel vs plain params {pdiff}")
+    del ks, ps, kts, pts
+    return dict(state=state, tstates=tstates, models=models, tick=tick, metrics=m,
+                launches=launches, ms=ms, key=key)
+
+
+def reference_train_tick(dev) -> None:
+    """An f32 train tick at 4 x 64 on the card against the same tick on the
+    CPU's plain path, twice: from init, then from the CPU's state and
+    parameters after one tick."""
+    from madrona_bots_tpu_torch import EnvConfig, init_state, rng
+    from madrona_bots_tpu_torch.config import NUM_ACTIONS
+    from madrona_bots_tpu_torch.env.state import FIELDS, state_from_numpy, state_to_numpy
+    from madrona_bots_tpu_torch.learn import a2c
+    from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+    from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+
+    small = EnvConfig(num_worlds=4, init_agents=32, max_agents=64)
+    gen = SpeciesNetGenerator(small.obs_dim, NUM_ACTIONS, 32, small.hidden_state_dim, seed=2)
+    models = [ActorCritic.from_generator(gen) for _ in range(small.num_species)]
+    tick, opt = a2c.make_train_tick(models, small, lr=LR)
+    tc = a2c.init_train_states(models, rng.key(3), opt)
+    sc = init_state(small, 5, "cpu")
+    floats = ("hidden", "prev_hidden", "surrounding", "prev_surrounding")
+    for t in range(2):
+        sg = state_from_numpy(state_to_numpy(sc), dev)
+        tg = tuple(a2c.SpeciesTrainState(x.params.to(dev), a2c.AdamState(
+            *(y.to(dev) for y in x.opt_state))) for x in tc)
+        sc, tc, _ = tick(sc, tc, rng.key(40 + t))
+        sg, tg, _ = tick(sg, tg, rng.key(40 + t, dev))
+        ng, nc = state_to_numpy(sg), state_to_numpy(sc)
+        bad = [f for f in FIELDS if f not in floats and not np.array_equal(ng[f], nc[f])]
+        hid = float(np.abs(ng["hidden"] - nc["hidden"]).max())
+        diff = torch.cat([(g.params.cpu() - c.params).abs() for g, c in zip(tg, tc)])
+        sure = torch.cat([c.opt_state.mu.abs() >= 1e-7 for c in tc])
+        well = float(diff[sure].max())
+        log(f"[reference] f32 train tick {t + 1} at 4x64, card vs CPU: exact-field "
+            f"mismatches {bad}; hidden max |diff| {hid:.3e}; params max |diff| "
+            f"{float(diff.max()):.3e} ({well:.3e} where |mu| >= 1e-7)")
+        check(not bad and hid <= 1e-5 and well <= (1e-6 if t == 0 else 1e-5)
+              and float(diff.max()) <= 2 * LR, f"train tick card vs CPU, tick {t + 1}")
+
+
+def cli_phase() -> None:
+    """The training CLI in a subprocess at --num_worlds 8: create a
+    universe with 3 epochs, then restore it for 2 more."""
+    import glob
+    import tempfile
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        save = os.path.join(tmp, "ckpts")
+        base = [sys.executable, "-m", "madrona_bots_tpu_torch.learn.training_loop",
+                "--num_worlds", "8", "--hidden_dim", "32", "--universe_id", "smoke",
+                "--model_save_dir", save] + ([] if DEVICE == "cuda" else ["--device", DEVICE])
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+        outs = []
+        for extra in (["--num_epochs", "3", "--create_universe"], ["--num_epochs", "2"]):
+            t0 = time.perf_counter()
+            p = subprocess.run(base + extra, cwd=tmp, env=env, capture_output=True,
+                               text=True, timeout=600)
+            if p.returncode != 0:
+                log(p.stdout[-2000:] + p.stderr[-4000:])
+            check(p.returncode == 0, f"CLI {' '.join(extra)} exited {p.returncode}")
+            fps = [ln for ln in p.stdout.splitlines() if ln.startswith("Average FPS")]
+            check(bool(fps), "CLI printed no Average FPS line")
+            outs.append((time.perf_counter() - t0, fps[0], p.stdout))
+        latest = sorted(os.path.relpath(f, save) for f in glob.glob(
+            os.path.join(save, "universe_smoke", "species_*", "latest_model_epoch_*.ckpt.npz")))
+        want = [f"universe_smoke/species_{s}/latest_model_epoch_5.ckpt.npz" for s in range(1, 5)]
+        check(latest == want, f"CLI checkpoints {latest}")
+        check("Loading model from" in outs[1][2], "CLI restore did not load")
+    log(f"[cli] create (3 epochs) {outs[0][0]:.1f} s, {outs[0][1]}; restore (2 epochs) "
+        f"{outs[1][0]:.1f} s, {outs[1][1]}; latest_model_epoch_5 for 4 species")
+
+
+def train_where(train, cfg) -> None:
+    """Host-clock ms of each piece of a bf16 train tick at the bench shape,
+    each call synchronised, and a profiler trace of two whole ticks."""
+    from madrona_bots_tpu_torch import rng
+    from madrona_bots_tpu_torch.config import NUM_ACTIONS
+    from madrona_bots_tpu_torch.env import env as env_mod
+    from madrona_bots_tpu_torch.learn import a2c
+    from madrona_bots_tpu_torch.learn.pack import expand_scatter
+    from madrona_bots_tpu_torch.ops import row_gather_cuda
+
+    bf16 = torch.bfloat16
+    s = train["state"].clone()
+    models, tstates, tick = train["models"], train["tstates"], train["tick"]
+    NS, D, H = cfg.num_species, cfg.obs_dim, cfg.hidden_state_dim
+    Wn, An = s.alive.shape
+    n, c0 = Wn * ROWS, 2 * D + 2 * H
+    dev = s.alive.device
+    opt = a2c.make_optimizer(LR)
+    grec4, slot, valid_g, _, _ = a2c.compact_learner_rows(s, cfg, ROWS, bf16)
+    kslot, fields, _, _ = gather_inputs(s, NS)
+    valid3 = valid_g.reshape(NS, Wn, ROWS)
+    ups = []
+    for i in range(NS):
+        g, vm = grec4[i], valid3[i].reshape(n).float()
+        ups.append((g[..., :D].reshape(n, D), g[..., D:2 * D].reshape(n, D),
+                    g[..., 2 * D:2 * D + H].reshape(n, H), g[..., 2 * D + H:c0].reshape(n, H),
+                    g[..., c0 + 1].long().reshape(n),
+                    sum(g[..., c0 + 2 + j].float() for j in range(3)).reshape(n),
+                    vm, g[..., c0].float().reshape(n) * vm))
+
+    def forwards():
+        with torch.no_grad():
+            for m, ts, u in zip(models, tstates, ups):
+                leaves = [t.to(bf16) for t in m.unflatten(ts.params)]
+                m(u[0], u[2].to(bf16), leaves)
+                m(u[1], u[3].to(bf16), leaves)
+
+    def updates():
+        for i, (m, ts, u) in enumerate(zip(models, tstates, ups)):
+            a2c._species_update(m, opt, ts, u[0], u[1], u[2], u[3], u[4], u[5], u[6],
+                                rng.key(i, dev), 1.0, False, bf16, loss_mask=u[7])
+
+    src = torch.zeros((NS * Wn, ROWS, NUM_ACTIONS + H), dtype=bf16, device=dev)
+    held = [train["state"].clone(), tstates]
+    key = rng.key(7, dev)
+
+    def whole():
+        held[0], held[1], m = tick(held[0], held[1], key)
+        a2c.stack_metrics(m).cpu()
+
+    parts = {
+        "env_step": lambda: env_mod.step(s, cfg),
+        "compaction": lambda: a2c.compact_learner_rows(s, cfg, ROWS, bf16),
+        "row_gather_kernel": lambda: row_gather_cuda.compact_fields(kslot, fields),
+        "forwards": forwards,
+        "species_updates": updates,
+        "write_back": lambda: (expand_scatter(src, slot, valid_g, An // NS),
+                               env_mod.shift_observations(s, cfg)),
+        "metrics_copy": lambda: a2c.stack_metrics(train["metrics"]).cpu(),
+        "whole_tick": whole,
+    }
+    ms = {name: host_ms(fn) for name, fn in parts.items()}
+    ms["backward_adam_metrics"] = ms["species_updates"] - ms["forwards"]
+    log(f"[where] train tick host ms per call, synchronised: {json.dumps(ms)}")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            whole()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in kern) / 1e3 / 2
+    launched = sum(e.count for e in kern) / 2
+    top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+    log(f"[where] profiled train tick: {launched:.0f} device kernels, device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
+        f"{1 - busy_ms / wall_ms:.3f}); top by device time: "
+        + "; ".join(f"{e.key[:48]} {getattr(e, 'self_device_time_total', 0.0) / 2e3:.3f} ms"
+                    for e in top))
+
+
 def where_the_time_goes(state, sys_inputs, ray_inputs, cfg, actions) -> None:
     """Host-clock ms of each piece of a tick, each call synchronised, and a
     profiler trace of two whole ticks: kernels launched and device busy time."""
@@ -312,15 +740,6 @@ def where_the_time_goes(state, sys_inputs, ray_inputs, cfg, actions) -> None:
     from madrona_bots_tpu_torch.env import systems as sy
     from madrona_bots_tpu_torch.learn.obs import construct_obs
     from madrona_bots_tpu_torch.ops import raycast_cuda, step_cuda
-
-    def host_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
 
     s, t = state, state.step_count
     parts = {

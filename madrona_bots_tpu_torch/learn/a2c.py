@@ -1,0 +1,402 @@
+"""Per-species TD(0) advantage actor-critic: one train tick.
+
+Counterpart of `madrona_bots_tpu/learn/a2c.py` (the per-species loop path):
+sim step, per-species forward / sample / loss / Adam update, action and
+memory write-back, then the observation shift. PyTorch runs it eagerly; the
+tick's values follow the jitted JAX tick.
+
+Species-class slot partitioning (SPEC D2b): slot i belongs to species
+(i % NS) + 1, so each species' rows are a strided view of the [W, A] batch.
+With `learner_slots_per_class = L < A / NS` each (world, class)'s alive rows
+are compacted into L learner rows first (overflow rows are dropped for the
+tick: null action, zero memory, counted in `species_*_dropped_rows`). In bf16
+that compaction is one launch of the row-gather kernel
+(`ops/row_gather_cuda.py`) over the tick's seven fields; in f32 it is an
+exact gather of one payload (`learn/pack.py`).
+
+`compute_dtype=torch.bfloat16` runs the forwards in bf16 against f32 master
+parameters; gradients and Adam stay f32, and memory written back in the
+compacting path travels in bf16.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from madrona_bots_tpu_torch import rng
+from madrona_bots_tpu_torch.config import NUM_ACTIONS, EnvConfig
+from madrona_bots_tpu_torch.env import env as env_mod
+from madrona_bots_tpu_torch.env.state import WorldState
+from madrona_bots_tpu_torch.learn.obs import construct_obs, obs_field_cols
+from madrona_bots_tpu_torch.learn.pack import (compact_gather, compact_slots,
+                                               expand_scatter,
+                                               kslot_from_class_slots, split3)
+from madrona_bots_tpu_torch.models.actor_critic import ActorCritic, compute_loss
+from madrona_bots_tpu_torch.ops import row_gather_cuda
+
+f32 = torch.float32
+bf16 = torch.bfloat16
+
+METRIC_NAMES = ("actor_loss", "critic_loss", "total_loss", "count", "reward",
+                "avg_action_prob", "avg_action_entropy", "dropped_rows",
+                "avg_health", "count_per_world", "popular_action")
+"""Per-species metrics of a tick, each as `species_{s}_{name}`, s from 1."""
+
+
+class AdamState(NamedTuple):
+    count: torch.Tensor   # [] int32
+    mu: torch.Tensor      # [P] f32
+    nu: torch.Tensor      # [P] f32
+
+
+class SpeciesTrainState(NamedTuple):
+    params: torch.Tensor  # [P] f32, the leaves of ActorCritic.unflatten
+    opt_state: AdamState
+
+
+class Adam:
+    """`optax.flatten(optax.adam(lr, b1, b2, eps))` on one flat parameter
+    vector: the same state leaves (count, mu, nu) and the same formula,
+    update = -lr * m_hat / (sqrt(v_hat) + eps), so checkpoints carry over
+    between the packages one to one."""
+
+    def __init__(self, lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params: torch.Tensor) -> AdamState:
+        return AdamState(torch.zeros((), dtype=torch.int32, device=params.device),
+                         torch.zeros_like(params), torch.zeros_like(params))
+
+    def update(self, grad: torch.Tensor, state: AdamState, params: torch.Tensor):
+        """(new params, new state)."""
+        mu = (1 - self.b1) * grad + self.b1 * state.mu
+        nu = (1 - self.b2) * (grad * grad) + self.b2 * state.nu
+        count = state.count + 1
+        t = count.to(f32)
+        mu_hat = mu / (1 - torch.pow(torch.full_like(t, self.b1), t))
+        nu_hat = nu / (1 - torch.pow(torch.full_like(t, self.b2), t))
+        upd = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        return params + upd, AdamState(count, mu, nu)
+
+
+def make_optimizer(lr: float = 3e-4) -> Adam:
+    """Adam at the reference defaults (b1 0.9, b2 0.999, eps 1e-8)."""
+    return Adam(lr)
+
+
+def init_train_states(models: Sequence[ActorCritic], key: torch.Tensor,
+                      optimizer: Adam):
+    """Species i's parameters from `fold_in(key, i)`, as the JAX package."""
+    states = []
+    for i, m in enumerate(models):
+        params = m.flatten(m.init(rng.fold_in(key, i)))
+        states.append(SpeciesTrainState(params, optimizer.init(params)))
+    return tuple(states)
+
+
+def _species_update(model: ActorCritic, optimizer: Adam, ts: SpeciesTrainState,
+                    obs_cur, obs_prev, mem_cur, mem_prev, prev_actions, rewards,
+                    mask, key, gamma: float, proper_log_probs: bool,
+                    compute_dtype=None, loss_mask=None):
+    """One species' gradient step on [N, ...] rows; `mask` [N] f32 selects
+    this species' alive rows and `loss_mask` (default `mask`) also drops
+    rows without a valid previous transition (SPEC D9). Returns (new train
+    state, sampled actions [N], new memory [N, H] f32, metrics)."""
+    if loss_mask is None:
+        loss_mask = mask
+
+    def fwd(flat, obs, mem):
+        leaves = model.unflatten(flat)
+        if compute_dtype is not None:
+            leaves = [t.to(compute_dtype) for t in leaves]
+            mem = mem.to(compute_dtype)
+        logits, v, h = model(obs, mem, leaves)
+        return logits.to(f32), v.to(f32), h.to(f32)
+
+    with torch.no_grad():
+        logits, v_new, new_mem = fwd(ts.params, obs_cur, mem_cur)
+    actions = rng.categorical(key, logits)
+
+    flat = ts.params.detach().requires_grad_(True)
+    with torch.enable_grad():
+        logits_p, v_prev, _ = fwd(flat, obs_prev, mem_prev)
+        # The reference indexes raw actor outputs as "log probs" unless
+        # proper_log_probs asks for the log-softmax.
+        logp_all = F.log_softmax(logits_p, dim=-1) if proper_log_probs else logits_p
+        logp = torch.gather(logp_all, 1, prev_actions.long()[:, None])[:, 0]
+        actor_loss, critic_loss = compute_loss(logp, rewards, v_prev, v_new,
+                                               gamma=gamma, mask=loss_mask)
+        total = actor_loss + critic_loss
+        (grad,) = torch.autograd.grad(total, flat)
+    new_params, new_opt = optimizer.update(grad, ts.opt_state, ts.params)
+
+    with torch.no_grad():
+        denom = torch.clamp(mask.sum(), min=1.0)
+        logp_soft = F.log_softmax(logits, dim=-1)
+        logp_taken = torch.gather(logp_soft, 1, actions[:, None])[:, 0]
+        probs = F.softmax(logits, dim=-1)
+        entropy = -torch.sum(probs * torch.log(torch.clamp(probs, min=1e-12)), dim=-1)
+        metrics = {
+            "actor_loss": actor_loss.detach(),
+            "critic_loss": critic_loss.detach(),
+            "total_loss": total.detach(),
+            "count": mask.sum(),
+            "reward": torch.sum(rewards * mask),
+            "avg_action_prob": torch.exp(torch.sum(logp_taken * mask) / denom),
+            "avg_action_entropy": torch.sum(entropy * mask) / denom,
+        }
+    return SpeciesTrainState(new_params, new_opt), actions, new_mem, metrics
+
+
+def class_masks(state: WorldState, NS: int):
+    """([W, A] alive-and-own-class mask, the same with a valid previous
+    transition (SPEC D9)): slot i holds class (i % NS) + 1."""
+    A = state.alive.shape[1]
+    spec_tile = torch.arange(1, NS + 1, dtype=state.species.dtype,
+                             device=state.alive.device).repeat(A // NS)
+    m_full = state.alive & (state.species == spec_tile)
+    return m_full, m_full & (state.prev_species == spec_tile)
+
+
+def learner_fields(state: WorldState, lm_full: torch.Tensor, quirk_compat: bool = False):
+    """The seven [W, A, d] sources the bf16 tick gathers in one launch:
+    depth and semantic bytes (current, previous), the 15 bf16 scalar
+    columns [health, pos, surrounding, prev health, prev pos, prev
+    surrounding, loss mask, prev action, reward as three bf16 planes], and
+    hidden / prev hidden in bf16. `lm_full` is the [W, A] loss mask of
+    `class_masks`. With quirk_compat the depth blocks carry the semantic
+    bytes (Q1) and health its int32 bits read as f32 (Q2)."""
+    if quirk_compat:
+        d_cur = state.sensor_semantic.to(torch.uint8)
+        d_prev = state.prev_sensor_semantic.to(torch.uint8)
+
+        def hcol(h):
+            return h[..., None].to(torch.int32).view(f32).to(bf16)
+    else:
+        d_cur, d_prev = state.sensor_depth, state.prev_sensor_depth
+
+        def hcol(h):
+            return h[..., None].to(bf16)
+    scal = torch.cat([
+        hcol(state.health), state.pos.to(bf16), state.surrounding.to(bf16),
+        hcol(state.prev_health), state.prev_pos.to(bf16),
+        state.prev_surrounding.to(bf16), lm_full[..., None].to(bf16),
+        torch.argmax(state.action, dim=-1)[..., None].to(bf16),
+        *(p[..., None] for p in split3(state.reward)),
+    ], dim=-1)                                                 # [W, A, 15]
+    return [d_cur, state.sensor_semantic, d_prev, state.prev_sensor_semantic,
+            scal, state.hidden.to(bf16), state.prev_hidden.to(bf16)]
+
+
+def compact_learner_rows(state: WorldState, cfg: EnvConfig, rows: int,
+                         compute_dtype=None, quirk_compat: bool = False,
+                         use_kernels: bool = True):
+    """Every class's learner rows: ([NS, W, rows, C] payload, slot, valid_g,
+    keep, m_full). Columns: [obs_cur, obs_prev, mem, mem_prev, loss mask,
+    prev action, reward] with the reward as three bf16 planes in bf16.
+    Groups are class-outermost (g = s * W + w)."""
+    NS = cfg.num_species
+    W, A = state.alive.shape
+    Asub, G = A // NS, NS * W
+    m_full, lm_full = class_masks(state, NS)
+
+    def cmaj(x):
+        """[W, A(, k)] -> class-outermost [G, Asub(, k)]."""
+        x4 = x.reshape((W, Asub, NS) + x.shape[2:])
+        return x4.permute((2, 0, 1) + tuple(range(3, x4.dim()))).reshape(
+            (G, Asub) + x.shape[2:])
+
+    slot, valid_g, keep = compact_slots(cmaj(m_full), rows)
+    if compute_dtype == bf16:
+        # One launch gathers all seven fields; sensor bytes stay bytes.
+        gather = (row_gather_cuda.compact_fields if use_kernels
+                  else row_gather_cuda.compact_fields_reference)
+        kslot = kslot_from_class_slots(slot, valid_g, W, NS)
+        cd, cs, pd, ps, csc, chid, cphid = gather(
+            kslot, learner_fields(state, lm_full, quirk_compat))
+        obs_c = torch.cat([cd, csc[..., 0:3], cs, csc[..., 3:5]], dim=-1)
+        obs_p = torch.cat([pd, csc[..., 5:8], ps, csc[..., 8:10]], dim=-1)
+        grec = torch.cat([obs_c, obs_p, chid, cphid, csc[..., 10:]], dim=-1)
+        grec4 = grec.reshape(W, NS, rows, grec.shape[-1]).permute(1, 0, 2, 3)
+    else:
+        dt = f32 if compute_dtype is None else compute_dtype
+        cols = obs_field_cols(state, cfg, prev=False, quirk_compat=quirk_compat, dtype=dt)
+        cols += obs_field_cols(state, cfg, prev=True, quirk_compat=quirk_compat, dtype=dt)
+        cols += [state.hidden.to(dt), state.prev_hidden.to(dt), lm_full[..., None].to(dt),
+                 torch.argmax(state.action, dim=-1)[..., None].to(dt),
+                 state.reward[..., None].to(dt)]
+        grec = compact_gather(cmaj(torch.cat(cols, dim=-1)), slot, valid_g)
+        grec4 = grec.reshape(NS, W, rows, grec.shape[-1])
+    return grec4, slot, valid_g, keep, m_full
+
+
+def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
+                    lr: float = 3e-4, gamma: float = 1.0,
+                    proper_log_probs: bool = False, quirk_compat: bool = False,
+                    use_kernels: bool = True, compute_dtype=None,
+                    learner_slots_per_class=None, stacked: bool = False,
+                    quirk_inloop_shift: bool = False):
+    """Build the train tick: returns (tick, optimizer) where
+    tick(state, train_states, key) -> (state, train_states, metrics)
+    runs sim step -> NS species updates -> write-back -> shift. Consumes
+    `state`. `use_kernels=False` runs every kernel's plain version (on any
+    device); on CUDA tensors the default launches the kernels.
+
+    quirk_inloop_shift (SPEC Q8) reproduces the reference's shift inside
+    the species loop; see the JAX `make_train_tick`. Loop path only, without
+    compaction. The species-stacked update is not ported yet."""
+    if stacked:
+        raise NotImplementedError("the species-stacked A2C tick is not ported yet")
+    optimizer = make_optimizer(lr)
+    NS = cfg.num_species
+    if len(models) != NS:
+        raise ValueError(f"{len(models)} models for {NS} species")
+    Asub = cfg.max_agents // NS
+    Lcap = learner_slots_per_class
+    compacting = Lcap is not None and Lcap < Asub
+    rows = Lcap if compacting else Asub
+    if quirk_inloop_shift and compacting:
+        raise ValueError("quirk_inloop_shift pins the reference ordering on the "
+                         "uncompacted per-species loop path only")
+    obs_dtype = f32 if compute_dtype is None else compute_dtype
+    D, H = cfg.obs_dim, cfg.hidden_state_dim
+
+    def tick(state: WorldState, train_states, key: torch.Tensor):
+        state = env_mod.step(state, cfg, use_kernels)
+        W, A = state.alive.shape
+        Nc = W * Asub
+        c0 = 2 * D + 2 * H                                  # scalar columns
+
+        alive3 = state.alive.reshape(W, Asub, NS)
+        species3 = state.species.reshape(W, Asub, NS)
+        prev_sp3 = state.prev_species.reshape(W, Asub, NS)
+        rewards3 = state.reward.reshape(W, Asub, NS)
+        health3 = state.health.reshape(W, Asub, NS)
+        if compacting:
+            grec4, slot, valid_g, keep, m_full = compact_learner_rows(
+                state, cfg, rows, compute_dtype, quirk_compat, use_kernels)
+            valid3 = valid_g.reshape(NS, W, rows)
+            m_sums = m_full.reshape(W, Asub, NS).sum(dim=(0, 1))
+            k_sums = keep.reshape(NS, W, Asub).sum(dim=(1, 2))
+        else:
+            obs_cur4 = construct_obs(state, cfg, prev=False, quirk_compat=quirk_compat,
+                                     dtype=obs_dtype).reshape(W, Asub, NS, D)
+            obs_prev4 = construct_obs(state, cfg, prev=True, quirk_compat=quirk_compat,
+                                      dtype=obs_dtype).reshape(W, Asub, NS, D)
+            mem4 = state.hidden.reshape(W, Asub, NS, H)
+            mem_prev4 = state.prev_hidden.reshape(W, Asub, NS, H)
+            prev_act3 = torch.argmax(state.action, dim=-1).reshape(W, Asub, NS)
+
+        new_tstates, metrics = [], {}
+        act_out, mem_out = [], []
+        for s in range(NS):
+            mask3 = alive3[:, :, s] & (species3[:, :, s] == s + 1)
+            mask_full = mask3.to(f32).reshape(Nc)
+            if compacting:
+                g = grec4[s]
+                vmask = valid3[s].reshape(W * rows).to(f32)
+                mask = vmask
+                loss_mask = g[..., c0].to(f32).reshape(W * rows) * vmask
+                if compute_dtype is None:
+                    rew = g[..., c0 + 2].reshape(W * rows)
+                else:
+                    rew = sum(g[..., c0 + 2 + i].to(f32)
+                              for i in range(3)).reshape(W * rows)
+                up = dict(obs_cur=g[..., 0:D].reshape(W * rows, D),
+                          obs_prev=g[..., D:2 * D].reshape(W * rows, D),
+                          mem=g[..., 2 * D:2 * D + H].reshape(W * rows, H),
+                          mem_prev=g[..., 2 * D + H:c0].reshape(W * rows, H),
+                          prev_act=g[..., c0 + 1].to(torch.int64).reshape(W * rows),
+                          rewards=rew)
+                dropped = m_sums[s] - k_sums[s]
+            else:
+                mask = mask_full
+                lm3 = mask3 & (prev_sp3[:, :, s] == s + 1)
+                loss_mask = lm3.to(f32).reshape(Nc)
+                up = dict(obs_cur=obs_cur4[:, :, s].reshape(Nc, D),
+                          obs_prev=obs_prev4[:, :, s].reshape(Nc, D),
+                          mem=mem4[:, :, s].reshape(Nc, H),
+                          mem_prev=mem_prev4[:, :, s].reshape(Nc, H),
+                          prev_act=prev_act3[:, :, s].reshape(Nc),
+                          rewards=rewards3[:, :, s].reshape(Nc))
+                dropped = torch.zeros((), dtype=torch.int64, device=mask.device)
+                if quirk_inloop_shift:
+                    # Q8: species s >= 2 read post-shift prev buffers: PREV
+                    # depth/semantic with CURRENT health/pos/surrounding;
+                    # every species' prev memory is its current one, and
+                    # the loss takes all alive rows (no D9 mask).
+                    if s > 0:
+                        S_ = cfg.sensor_size
+                        oc, op = up["obs_cur"], up["obs_prev"]
+                        up["obs_prev"] = torch.cat(
+                            [op[:, :S_], oc[:, S_:S_ + 3], op[:, S_ + 3:2 * S_ + 3],
+                             oc[:, 2 * S_ + 3:]], dim=1)
+                    up["mem_prev"] = up["mem"]
+                    loss_mask = mask
+
+            ts, actions, mem, m = _species_update(
+                models[s], optimizer, train_states[s], up["obs_cur"], up["obs_prev"],
+                up["mem"], up["mem_prev"], up["prev_act"], up["rewards"], mask,
+                rng.fold_in(key, s), gamma, proper_log_probs, compute_dtype,
+                loss_mask=loss_mask)
+            new_tstates.append(ts)
+            onehot = F.one_hot(actions, NUM_ACTIONS)
+            if compacting:
+                act_out.append((onehot.to(f32) * mask[:, None]).reshape(W, rows, NUM_ACTIONS))
+            else:
+                act_out.append((onehot.to(torch.int32) * mask[:, None].to(torch.int32))
+                               .reshape(W, rows, NUM_ACTIONS))
+            mem_out.append((mem * mask[:, None]).reshape(W, rows, H))
+            # Population, reward and health always over the full alive set.
+            with torch.no_grad():
+                m["count"] = mask_full.sum()
+                m["reward"] = torch.sum(rewards3[:, :, s].reshape(Nc) * mask_full)
+                m["dropped_rows"] = dropped
+                denom = torch.clamp(m["count"], min=1.0)
+                m["avg_health"] = torch.sum(
+                    health3[:, :, s].reshape(Nc).to(f32) * mask_full) / denom
+                m["count_per_world"] = m["count"] / W
+                hist = torch.sum(onehot.to(f32) * mask[:, None], dim=0)
+                m["popular_action"] = torch.argmax(hist).to(f32)
+            for k in METRIC_NAMES:
+                metrics[f"species_{s + 1}_{k}"] = m[k]
+
+        if compacting:
+            # One expansion for all species' actions and memory: zeros where
+            # no learner row maps (dead slots and dropped overflow).
+            sdt = bf16 if compute_dtype == bf16 else f32
+            src = torch.stack([torch.cat([o, mm], dim=-1)
+                               for o, mm in zip(act_out, mem_out)], dim=0)
+            src = src.reshape(NS * W, rows, NUM_ACTIONS + H).to(sdt)
+            out = expand_scatter(src, slot, valid_g, Asub)
+            out4 = out.reshape(NS, W, Asub, NUM_ACTIONS + H).permute(1, 2, 0, 3)
+            new_action = out4[..., :NUM_ACTIONS].to(torch.int32)
+            new_hidden = out4[..., NUM_ACTIONS:]
+        else:
+            new_action = torch.stack(act_out, dim=2)         # [W, Asub, NS, 6]
+            new_hidden = torch.stack(mem_out, dim=2)         # [W, Asub, NS, H]
+        state = env_mod.shift_observations(state, cfg)
+        state = state.replace(
+            action=new_action.reshape(W, A, NUM_ACTIONS).contiguous(),
+            hidden=new_hidden.reshape(W, A, H).to(state.hidden.dtype).contiguous())
+        if quirk_inloop_shift:
+            # The reference's last shift runs after species 1..NS-1 wrote
+            # but before species NS did: only class NS-1 keeps old prevs.
+            last = ((torch.arange(A, device=state.alive.device) % NS)
+                    == NS - 1)[None, :, None]
+            state = state.replace(
+                prev_action=torch.where(last, state.prev_action, state.action),
+                prev_hidden=torch.where(last, state.prev_hidden, state.hidden))
+        return state, tuple(new_tstates), metrics
+
+    return tick, optimizer
+
+
+def stack_metrics(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The tick's metrics as one f32 vector in the dict's order, so they
+    leave the card in one copy."""
+    return torch.stack([v.to(f32) for v in metrics.values()])

@@ -1,0 +1,88 @@
+"""Learner-row compaction: slot indices, gather, expansion, bf16 split.
+
+Counterpart of the parts of `madrona_bots_tpu/learn/pack.py` that the A2C
+tick runs. The JAX package moves rows with one-hot contractions (a TPU
+stand-in for dynamic gathers); a GPU gathers directly, and every function
+here is exact data movement for every dtype.
+
+Groups are class-outermost: g = s * W + w holds class s of world w, whose
+slots are {i : i % NS == s} (SPEC D2b), `Asub = A / NS` of them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+bf16 = torch.bfloat16
+f32 = torch.float32
+
+
+def split3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 `x` as three bf16 planes with h1 + h2 + h3 == x exactly (for |x|
+    >= ~2^-133 or x == 0): each plane is the round-to-nearest-even bf16 of
+    the remainder, as `lax.reduce_precision(x, 8, 7)` computes it."""
+    x = x.to(f32)
+    h1 = x.to(bf16)
+    r1 = x - h1.to(f32)
+    h2 = r1.to(bf16)
+    h3 = (r1 - h2.to(f32)).to(bf16)
+    return h1, h2, h3
+
+
+def compact_slots(mask: torch.Tensor, rows: int):
+    """Per-group rank compaction. mask [G, Asub] bool ->
+      slot  [G, rows] i32 : slot index of the r-th set entry (ascending), 0
+                            where r >= count (mask with `valid`)
+      valid [G, rows] bool: r < count(g)
+      keep  [G, Asub] bool: set entries of rank < rows (overflow dropped)
+    """
+    G, Asub = mask.shape
+    rank = torch.cumsum(mask.to(torch.int32), dim=1) - 1
+    keep = mask & (rank < rows)
+    # Kept entries scatter their slot index to column `rank`; the rest go to
+    # a spill column that is cut off (only it ever receives duplicates).
+    col = torch.where(keep, rank, rows).long()
+    slot = torch.zeros((G, rows + 1), dtype=torch.int32, device=mask.device)
+    idx = torch.arange(Asub, dtype=torch.int32, device=mask.device).expand(G, Asub)
+    slot.scatter_(1, col, idx)
+    count = mask.sum(dim=1, dtype=torch.int32)
+    valid = torch.arange(rows, device=mask.device)[None, :] < count[:, None]
+    return slot[:, :rows].contiguous(), valid, keep
+
+
+def compact_gather(payload: torch.Tensor, slot: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """[G, Asub, C] payload x [G, rows] slot -> [G, rows, C]: row r is
+    payload[g, slot[g, r]] where valid, zeros elsewhere. Any dtype."""
+    out = torch.take_along_dim(payload, slot.long()[:, :, None], dim=1)
+    return torch.where(valid[:, :, None], out, torch.zeros((), dtype=out.dtype,
+                                                           device=out.device))
+
+
+def expand_scatter(src: torch.Tensor, slot: torch.Tensor, valid: torch.Tensor,
+                   Asub: int) -> torch.Tensor:
+    """[G, rows, C] src -> [G, Asub, C]: dst[g, slot[g, r]] = src[g, r] for
+    valid r, zeros at every slot no valid row maps to. Written as a gather
+    through the inverse map (deterministic on every device)."""
+    G, rows, C = src.shape
+    col = torch.where(valid, slot, Asub).long()
+    inv = torch.full((G, Asub + 1), -1, dtype=torch.int64, device=src.device)
+    inv.scatter_(1, col, torch.arange(rows, device=src.device).expand(G, rows))
+    inv = inv[:, :Asub]
+    out = torch.take_along_dim(src, inv.clamp(min=0)[:, :, None], dim=1)
+    return torch.where((inv >= 0)[:, :, None], out,
+                       torch.zeros((), dtype=src.dtype, device=src.device))
+
+
+def kslot_from_class_slots(slot: torch.Tensor, valid: torch.Tensor, W: int,
+                           NS: int) -> torch.Tensor:
+    """[G = NS*W, rows] class-local slots (class-outermost groups) -> [W, K =
+    NS*rows] slots into the world's A slots, -1 at invalid rows; k = s * rows
+    + r. Class s holds slots {i : i % NS == s}, so global = local * NS + s."""
+    rows = slot.shape[1]
+    spec = torch.arange(NS, dtype=slot.dtype, device=slot.device)[:, None, None]
+    g3 = slot.reshape(NS, W, rows) * NS + spec
+    g3 = torch.where(valid.reshape(NS, W, rows), g3, -1)
+    return g3.permute(1, 0, 2).reshape(W, NS * rows).to(torch.int32).contiguous()

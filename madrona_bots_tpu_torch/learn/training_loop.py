@@ -1,0 +1,207 @@
+"""Training CLI: per-species A2C on the card.
+
+    python -m madrona_bots_tpu_torch.learn.training_loop --num_worlds 8 \\
+        --num_epochs 5 --create_universe --universe_id demo \\
+        --model_save_dir ckpts --hidden_dim 32
+
+Counterpart of `madrona_bots_tpu/learn/training_loop.py` with the same flags
+and flow: per-species ActorCritic creation or restore under a "universe"
+checkpoint directory, one train tick per epoch, reference metric names,
+latest and best-metric checkpoints, and the FPS report. `--create_universe
+--seed s` creates the same universe as the JAX package's CLI, and either
+package restores the other's. Runs on CUDA unless `--device cpu` is given.
+The tick's metrics leave the card as one stacked tensor, one copy per epoch.
+
+Not ported yet, and refused with an error: `--algo ppo`, `--stacked`,
+`--use_mesh` and `--ticks_per_block` > 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from madrona_bots_tpu_torch import rng
+from madrona_bots_tpu_torch.config import EnvConfig, RewardSetting
+from madrona_bots_tpu_torch.device import resolve
+from madrona_bots_tpu_torch.env.state import init_state
+from madrona_bots_tpu_torch.learn.a2c import (SpeciesTrainState, make_optimizer,
+                                              make_train_tick, stack_metrics)
+from madrona_bots_tpu_torch.learn.ckpt import CheckpointManager
+from madrona_bots_tpu_torch.learn.metrics import MetricsLogger
+from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+
+BEST_METRICS = ("actor_loss", "critic_loss", "total_loss")
+
+
+def construct_run_name(args) -> str:
+    """The run name encodes the universe and the reward setting."""
+    return f"universe_{args.universe_id}-r{args.reward_setting}"
+
+
+def _refuse_unported(args) -> None:
+    for on, what in ((args.algo == "ppo", "--algo ppo"), (args.stacked, "--stacked"),
+                     (args.use_mesh, "--use_mesh"),
+                     (args.ticks_per_block > 1, "--ticks_per_block > 1")):
+        if on:
+            raise NotImplementedError(f"{what} is not ported to madrona_bots_tpu_torch "
+                                      "yet; run the JAX package's CLI for it")
+
+
+def train(args):
+    _refuse_unported(args)
+    dev = resolve(args.device)
+    run_name = construct_run_name(args)
+    cfg = EnvConfig(num_worlds=args.num_worlds, init_agents=32,
+                    max_agents=args.max_agents, num_species=args.num_species,
+                    reward_setting=RewardSetting(args.reward_setting))
+    base_ckpt_dir = os.path.join(args.model_save_dir, f"universe_{args.universe_id}")
+    if args.create_universe and os.path.exists(base_ckpt_dir):
+        raise FileExistsError(f"Universe {args.universe_id} already exists")
+    if not args.create_universe and not os.path.exists(base_ckpt_dir):
+        raise FileNotFoundError(f"Universe {args.universe_id} does not exist")
+    logger = MetricsLogger(use_wandb=args.use_wandb, run_name=run_name,
+                           config=vars(args),
+                           jsonl_path=os.path.join(args.model_save_dir,
+                                                   f"{run_name}.metrics.jsonl"))
+
+    ckpt = CheckpointManager(base_ckpt_dir, restore=True)
+    gen = SpeciesNetGenerator(args.obs_dim, args.action_dim, args.hidden_dim,
+                              args.memory_dim, seed=args.seed)
+    optimizer = make_optimizer(args.lr)
+    models, tstates, start_epochs = [], [], []
+    init_key = rng.key(args.seed, dev)
+    for sp in range(1, args.num_species + 1):
+        if args.create_universe:
+            print(f"Creating universe: new model for species {sp}...")
+            model = ActorCritic.from_generator(gen, device=dev)
+            print(f"Species {sp} model: ", model.get_config())
+            params = model.flatten(model.init(rng.fold_in(init_key, sp)))
+            opt_state = optimizer.init(params)
+            ckpt.save(model, params, opt_state, f"species_{sp}", 0,
+                      metric_name="latest", verbose=True)
+            start_epochs.append(0)
+        else:
+            print(f"Loading cached model for species {sp}...")
+            model, params, opt_state, epoch = ckpt.load(
+                ActorCritic, optimizer, f"species_{sp}", metric_name=args.model_load,
+                verbose=True, device=dev)
+            start_epochs.append(epoch)
+        models.append(model)
+        tstates.append(SpeciesTrainState(params, opt_state))
+    tstates = tuple(tstates)
+    compute_dtype = {"f32": None, "bf16": torch.bfloat16}[args.compute_dtype]
+    tick, _ = make_train_tick(models, cfg, lr=args.lr, gamma=args.gamma,
+                              proper_log_probs=args.proper_log_probs,
+                              quirk_compat=args.quirk_compat,
+                              compute_dtype=compute_dtype,
+                              learner_slots_per_class=args.learner_slots)
+    state = init_state(cfg, args.seed, dev)
+    key = rng.key(args.seed + 1, dev)
+
+    best = {m: [float("inf")] * args.num_species for m in BEST_METRICS}
+    time_values = []
+
+    def handle_epoch(rel_epoch, host_metrics, dt):
+        if rel_epoch % args.print_freq == 0 or rel_epoch == 1:
+            print("Relative Epoch ", rel_epoch)
+        host_metrics["epoch_fps"] = args.num_worlds / dt
+        for sp in range(args.num_species):
+            epoch = start_epochs[sp] + rel_epoch
+            ts = tstates[sp]
+            host_metrics[f"species_{sp+1}_learning_rate"] = args.lr
+            host_metrics["epoch"] = epoch
+            if rel_epoch % args.ckpt_every == 0:
+                ckpt.save(models[sp], ts.params, ts.opt_state, f"species_{sp+1}",
+                          epoch, metric_name="latest", verbose=args.verbose)
+            for metric in BEST_METRICS:
+                v = host_metrics[f"species_{sp+1}_{metric}"]
+                if v < best[metric][sp]:
+                    best[metric][sp] = v
+                    ckpt.save(models[sp], ts.params, ts.opt_state, f"species_{sp+1}",
+                              epoch, metric_name=metric, verbose=args.verbose)
+        logger.log(host_metrics)
+
+    for rel_epoch in range(1, args.num_epochs + 1):
+        t0 = time.time()
+        key, sub = rng.split(key, 2)
+        state, tstates, metrics = tick(state, tstates, sub)
+        host = stack_metrics(metrics).cpu()          # one copy; waits for the card
+        dt = time.time() - t0
+        time_values.append(dt)
+        handle_epoch(rel_epoch, dict(zip(metrics, host.tolist())), dt)
+
+    if time_values:
+        avg = (float(np.mean(time_values[1:])) if len(time_values) > 1
+               else time_values[0])
+        print(f"Average FPS for simulator: {args.num_worlds / avg}")
+    logger.finish()
+    return state, tstates
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Training loop for species simulation (PyTorch / CUDA).")
+    parser.add_argument('--num_worlds', type=int, default=2048)
+    parser.add_argument('--universe_id', type=str, default='luc')
+    parser.add_argument('--num_species', type=int, default=4)
+    parser.add_argument('--obs_dim', type=int, default=69)
+    parser.add_argument('--hidden_dim', type=int, default=128)
+    parser.add_argument('--action_dim', type=int, default=6)
+    parser.add_argument('--memory_dim', type=int, default=16)
+    parser.add_argument('--lr', type=float, default=3e-4)
+    parser.add_argument('--init_epsilon', type=float, default=0.5)
+    parser.add_argument('--num_epochs', type=int, default=100)
+    parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--use_wandb', action='store_true')
+    parser.add_argument('--create_universe', action='store_true')
+    parser.add_argument('--model_save_dir', type=str, default='checkpoints')
+    parser.add_argument('--model_load', type=str, default='latest')
+    parser.add_argument('--enable_viewer', action='store_true')
+    parser.add_argument('--verbose', action='store_true')
+    parser.add_argument('--max_agents', type=int, default=128)
+    parser.add_argument('--gamma', type=float, default=1.0)
+    parser.add_argument('--reward_setting', type=int, default=8)
+    parser.add_argument('--proper_log_probs', action='store_true',
+                        help='use log-softmax instead of raw logits in the '
+                             'actor loss (fixes a reference quirk)')
+    parser.add_argument('--quirk_compat', action='store_true',
+                        help='train on the exact reference observation: '
+                             'depth block = semantic bytes (Q1) and health '
+                             'bit-reinterpreted int32->f32 (Q2)')
+    parser.add_argument('--use_pallas', action='store_true',
+                        help='accepted for command-line parity with the JAX '
+                             'CLI; on CUDA the port always runs its kernels')
+    parser.add_argument('--ckpt_every', type=int, default=1)
+    parser.add_argument('--print_freq', type=int, default=10)
+    parser.add_argument('--ticks_per_block', type=int, default=1,
+                        help='not ported yet: only 1 is accepted')
+    parser.add_argument('--use_mesh', action='store_true', help='not ported yet')
+    parser.add_argument('--compute_dtype', choices=['f32', 'bf16'],
+                        default='f32', help='forward-pass precision')
+    parser.add_argument('--algo', choices=['a2c', 'ppo'], default='a2c',
+                        help='a2c = reference-parity TD(0); ppo is not ported yet')
+    parser.add_argument('--rollout_len', type=int, default=16,
+                        help='PPO: env steps per iteration (not ported yet)')
+    parser.add_argument('--learner_slots', type=int, default=None,
+                        help='cap learner rows per (world, species) via '
+                             'on-device compaction; None trains on all '
+                             'padded slots')
+    parser.add_argument('--stacked', action='store_true', help='not ported yet')
+    parser.add_argument('--device', type=str, default=None,
+                        help="torch device; default CUDA (raises without a card); "
+                             "'cpu' runs the kernels' plain versions")
+    return parser
+
+
+def main(argv=None):
+    train(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

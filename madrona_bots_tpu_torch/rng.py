@@ -11,6 +11,9 @@ module reproduces jax 0.9.0 with `jax_threefry_partitionable=True`:
 * `uniform` sets the 23 mantissa bits of a float in [1, 2) and subtracts 1
 * `randint` draws two words per value from the split keys (0, 0) and (0, 1)
   and folds them into the span as jax's `_randint` does
+* `split(key, n)[i]` = `fold_in(key, i)`; `categorical` is argmax(logits +
+  Gumbel noise) as `jax.random.categorical` draws it (the A2C tick's action
+  sampling, one `fold_in(key, s)` per species)
 
 Keys are `[..., 2]` int64 tensors holding uint32 words; all uint32
 arithmetic runs in int64 with `& 0xFFFFFFFF`, so it works on any device and
@@ -22,6 +25,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from madrona_bots_tpu_torch.trig import fma_f32
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -79,11 +84,43 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """`jax.random.uniform(key, shape, float32)` in [0, 1)."""
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split(key, num)`: [num, *key.shape]. With partitionable
+    threefry the i-th key is threefry(key, (0, i)), i.e. `fold_in(key, i)`."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    return fold_in(key[None], idx.reshape((num,) + (1,) * (key.dim() - 1)))
+
+
+def uniform(key: torch.Tensor, shape, minval=None, maxval=None) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32[, minval, maxval])`; without
+    bounds in [0, 1). With bounds the value is max(minval, fma(u, maxval -
+    minval, minval)) in f32: XLA:CPU contracts jax's `u * span + minval`
+    into one fused multiply-add."""
     bits = random_bits(key, shape)
     one_bits = (bits >> 9) | 0x3F800000
-    return one_bits.to(torch.int32).view(torch.float32) - 1.0
+    u = one_bits.to(torch.int32).view(torch.float32) - 1.0
+    if minval is None:
+        return u
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=u.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=u.device)
+    return torch.maximum(lo, fma_f32(u, (hi - lo).expand_as(u), lo.expand_as(u)))
+
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.gumbel(key, shape, float32)` in its default "low" mode:
+    -log(-log(uniform(key, minval=tiny, maxval=1))). The uniform's span
+    1 - tiny rounds to 1, so the draw is u where u > 0 and tiny at u == 0."""
+    u = uniform(key, shape)
+    return -torch.log(-torch.log(torch.clamp(u + _TINY, min=_TINY)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """`jax.random.categorical(key, logits, axis=-1)`: argmax(gumbel +
+    logits) over the last axis, first index on ties; int64."""
+    return torch.argmax(gumbel(key, logits.shape) + logits, dim=-1)
 
 
 def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:

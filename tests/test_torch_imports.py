@@ -62,3 +62,17 @@ def test_kernel_library_names_follow_sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}_")
     assert _build.library_path("systems") != _build.library_path("raycast")
+
+
+def test_training_cli_defaults_to_cuda(tmp_path):
+    """The CLI runs on CUDA unless `--device cpu` is given; without a card
+    it raises before it writes anything."""
+    from madrona_bots_tpu_torch.learn import training_loop
+    args = ["--num_worlds", "2", "--num_epochs", "1", "--create_universe",
+            "--model_save_dir", str(tmp_path), "--hidden_dim", "8"]
+    if torch.cuda.is_available():
+        assert training_loop.build_parser().parse_args(args).device is None
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        training_loop.main(args)
+    assert not any(tmp_path.iterdir())

@@ -94,3 +94,41 @@ def test_food_spawn_matches():
         for w_, g_ in zip(want, got):
             np.testing.assert_array_equal(np.asarray(w_), g_.numpy())
         count, cell, num = (np.array(v) for v in want)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2**31 + 9])
+def test_split_matches(seed):
+    for num in (2, 4, 7):
+        want = jax.random.key_data(jax.random.split(jax.random.key(seed), num))
+        np.testing.assert_array_equal(np.asarray(want),
+                                      rng.split(rng.key(seed), num).numpy().astype(np.uint32))
+
+
+@pytest.mark.parametrize("fan_in", [16, 32, 69, 128])
+def test_uniform_with_bounds_matches(fan_in):
+    """`jax.random.uniform(k, shape, f32, -b, b)`, bit for bit (XLA fuses
+    u * span + minval into one FMA)."""
+    b = 1.0 / jnp.sqrt(jnp.float32(fan_in))
+    want = jax.random.uniform(jax.random.key(fan_in), (fan_in, 40), jnp.float32, -b, b)
+    tb = torch.tensor(np.float32(b))
+    got = rng.uniform(rng.key(fan_in), (fan_in, 40), -tb, tb)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_categorical_matches_jitted_jax(seed):
+    """Sampled actions of the A2C tick's call pattern (fold_in(key, s) per
+    species, [N, 6] logits) equal the jitted jax.random.categorical's; the
+    Gumbel noise itself is held within a few ulp (XLA:CPU's log and
+    torch's may differ in the last bit)."""
+    r = np.random.default_rng(seed)
+    logits = (r.normal(size=(4096, 6)) * 3).astype(np.float32)
+    for s in range(4):
+        jk = jax.random.fold_in(jax.random.key(seed), s)
+        tk = rng.fold_in(rng.key(seed), s)
+        want = jax.jit(jax.random.categorical)(jk, jnp.asarray(logits))
+        got = rng.categorical(tk, torch.from_numpy(logits))
+        assert int((np.asarray(want) != got.numpy()).sum()) == 0
+        g_want = jax.jit(lambda k: jax.random.gumbel(k, (4096, 6)))(jk)
+        np.testing.assert_allclose(rng.gumbel(tk, (4096, 6)).numpy(), np.asarray(g_want),
+                                   rtol=1e-6, atol=1e-6)
