@@ -9,12 +9,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2. the systems kernel against its plain version on the same inputs, at
      8192 worlds x 128 slots after 16 plain steps of heavy shoot/breed;
   3. the raycast kernel against its plain version on those states, on a
-     saturated one (128 agents per world), and at the shapes where the JAX
-     package runs its packed (8 x 32) and blocked (4 x 33) kernels, each
-     with a few train ticks at that shape as its main path;
+     saturated one (128 agents per world; 4 rollout ticks from it count the
+     kernel's launches there), on two states built to tie at 8192 x 128
+     (agents stacked on equal grid points, headings 0, pi/2, pi), on the
+     stepped state at sensor sizes 20 and 48 (idle lanes and 4-byte dead
+     rows; two rays a lane), and at the shapes where the JAX package runs
+     its packed (8 x 32) and blocked (4 x 33) kernels, each with a few train
+     ticks at that shape as its main path;
   4. the row-gather kernel against its plain version on the bf16 A2C tick's
      seven fields at 8192 x 128 with 10 learner rows per class, on the
-     stepped and on the saturated state (rows dropped);
+     stepped and on the saturated state (rows dropped), with 3 rows per
+     class (K = 12) on the stepped state, and on six fields no A2C tick has
+     (int32 rows, widths 5 and 6, pointers off 16-byte alignment) so that
+     every access path and dtype of the kernel runs;
   5. the world rollout: init_state, 64 timed ticks of set_actions -> step ->
      shift_observations, construct_obs; each kernel must launch once a tick;
      16 ticks on the kernel and the plain path must agree;
@@ -27,20 +34,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      package);
   8. the training CLI as a subprocess at --num_worlds 8: create a universe,
      then restore it;
-  9. each kernel's time per launch, its plain version's time, its bound and
-     (row gather) one PyTorch gather's time; where a rollout tick's and a
-     train tick's time goes.
+  9. each kernel's time per launch (the raycast also at the saturated
+     state), its plain version's time, its bound, its share of the bound,
+     its registers and spills (ptxas's report of the library this run
+     loaded, kept beside it by the build) and (row gather) one PyTorch gather's
+     time, with the card's clocks, temperatures and clock-event reasons
+     sampled before and after; where a rollout tick's and a train tick's
+     time goes.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
-device or without the package beside it. Timings use CUDA events.
+device or without the package beside it. Timings use CUDA events; a
+kernel's time (`ms`) is the median of 5 batches of launches back to back,
+beside its device time from a profiler trace (`device_ms`) and the host
+time of one wrapper call (`host_ms`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,34 +109,24 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     # ---- 1. build ----
-    secs, ptxas = _build.build(verbose=True)
+    secs, ptxas = _build.build()
     log(f"[build] {len(_build.SOURCES)} kernels ({', '.join(_build.SOURCES)}) "
         f"in {secs:.1f} s")
     for line in ptxas.splitlines():
-        if "registers" in line or line.startswith("["):
+        if "registers" in line or "spill" in line or line.startswith("["):
             log("  " + line.strip())
+    usage = ptxas_usage(ptxas)
 
     cfg = EnvConfig(num_worlds=W, init_agents=INIT, max_agents=A)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
 
     def one_hot_actions(heavy: bool = False) -> torch.Tensor:
-        a = torch.nn.functional.one_hot(
-            torch.randint(0, 6, (W, A), generator=gen, device=dev), 6).to(torch.int32)
-        if heavy:
-            a[..., 4] |= torch.randint(0, 2, (W, A), generator=gen, device=dev,
-                                       dtype=torch.int32)
-            a[..., 5] |= torch.randint(0, 2, (W, A), generator=gen, device=dev,
-                                       dtype=torch.int32)
-        return a
+        return random_actions(gen, dev, heavy)
 
     # ---- 2. systems kernel against its plain version ----
     t0 = time.perf_counter()
-    state = init_state(cfg, seed=7, device=dev)
-    for _ in range(16):
-        state = step(env_mod.set_actions(state, one_hot_actions(heavy=True)), cfg,
-                     use_kernels=False)
-    env_mod.set_actions(state, one_hot_actions(heavy=True))
+    state = stepped_state(cfg, dev, one_hot_actions)
     torch.cuda.synchronize()
     log(f"[systems] 16 plain steps in {time.perf_counter() - t0:.1f} s; "
         f"alive {int(state.alive.sum())} of {W * A}")
@@ -163,11 +170,12 @@ def main() -> int:
     got = step_cuda.systems(*sys_inputs, cfg)
 
     # ---- 3. raycast kernel against its plain version ----
-    sat_cfg = EnvConfig(num_worlds=W, init_agents=A, max_agents=A)
-    sat = init_state(sat_cfg, seed=3, device=dev)
-    sat.heading.copy_(torch.rand((W, A), generator=gen, device=dev) * 6.28)
+    sat_cfg, sat = saturated_state(dev, gen)
     ray_cases = {"after_16_steps": (state, cfg), "saturated": (sat, sat_cfg)}
-    ray_err = 0.0
+    ray_cases.update(tie_states(dev, gen, cfg))
+    for S in (20, 48):
+        ray_cases[f"sensor_size_{S}"] = (state, dataclasses.replace(cfg, sensor_size=S))
+    ray_err = {}
     for label, (s, c) in ray_cases.items():
         args = (s.pos, s.heading, s.alive, s.species)
         got_r = raycast_cuda.raycast(*args, c)
@@ -175,32 +183,59 @@ def main() -> int:
         torch.cuda.synchronize()
         m = {n: int((g != w).sum()) for n, g, w in
              zip(("depth", "semantic", "finder"), got_r, want_r)}
-        log(f"[raycast] {label} (alive {int(s.alive.sum())}): kernel vs plain "
-            f"mismatches {json.dumps(m)}")
+        log(f"[raycast] {label} (S {c.sensor_size}, alive {int(s.alive.sum())}, finder hits "
+            f"{int((want_r[2] >= 0).sum())}): kernel vs plain mismatches {json.dumps(m)}")
         check(all(v == 0 for v in m.values()), f"raycast {label}: {m}")
-        ray_err = max([ray_err] + [float((g.float() - w.float()).abs().max())
-                                   for g, w in zip(got_r, want_r)])
+        ray_err[label] = max(float((g.float() - w.float()).abs().max())
+                             for g, w in zip(got_r, want_r))
     ray_inputs = (state.pos, state.heading, state.alive, state.species)
-    sat_inputs = (sat.pos, sat.heading, sat.alive, sat.species, sat_cfg)
+    sat_inputs = (sat.pos, sat.heading, sat.alive, sat.species)
+    sat_run = sat.clone()
+    torch.cuda.synchronize()
+    raycast_cuda.launches = 0
+    for _ in range(4):
+        sat_run = env_mod.shift_observations(
+            step(env_mod.set_actions(sat_run, one_hot_actions()), sat_cfg), sat_cfg)
+    torch.cuda.synchronize()
+    sat_launches = raycast_cuda.launches
+    log(f"[raycast] saturated: 4 rollout ticks at {W}x{A} from every slot alive launched "
+        f"it {sat_launches} times; alive after {int(sat_run.alive.sum())}")
+    check(sat_launches == 4, f"raycast saturated: {sat_launches} launches in 4 ticks")
+    del sat_run
     small_rays = raycast_small_shapes(dev, gen)
 
     # ---- 4. row-gather kernel against its plain version ----
     gather_err = 0.0
-    for label, s_ in (("after_16_steps", state), ("saturated", sat)):
-        kslot, fields, dropped, members = gather_inputs(s_, cfg.num_species)
+    for label, s_, rows in (("after_16_steps", state, ROWS), ("saturated", sat, ROWS),
+                            ("after_16_steps", state, 3)):
+        kslot, fields, dropped, members = gather_inputs(s_, cfg.num_species, rows)
         got_g = row_gather_cuda.compact_fields(kslot, fields)
         want_g = row_gather_cuda.compact_fields_reference(kslot, fields)
         torch.cuda.synchronize()
         mism = [int((g.view(torch.int16) != w.view(torch.int16)).sum())
                 for g, w in zip(got_g, want_g)]
-        log(f"[row_gather] {label}: 7 fields, kslot {tuple(kslot.shape)}, "
-            f"{int((kslot >= 0).sum())} rows gathered, {dropped} of {members} class "
-            f"rows dropped; kernel vs plain bit mismatches per field {mism}")
-        check(sum(mism) == 0, f"row_gather {label}: {mism}")
+        log(f"[row_gather] {label}, {rows} rows per class: 7 fields, kslot "
+            f"{tuple(kslot.shape)}, {int((kslot >= 0).sum())} rows gathered, {dropped} of "
+            f"{members} class rows dropped; kernel vs plain bit mismatches per field {mism}")
+        check(sum(mism) == 0, f"row_gather {label} K={kslot.shape[1]}: {mism}")
+        check(label != "saturated" or dropped > 0, "row_gather saturated: no rows dropped")
         gather_err = max([gather_err] + [float((g.float() - w.float()).abs().max())
                                          for g, w in zip(got_g, want_g)])
-    check(dropped > 0, "row_gather saturated: no rows dropped")
-    del sat, ray_cases
+    kslot, _, _, _ = gather_inputs(state, cfg.num_species, ROWS)
+    odd = odd_fields(W, A, dev, gen)
+    vecs = [row_gather_cuda.vector_width(f.shape[2], f.element_size(), f.data_ptr(), 0)
+            for f in odd]
+    got_g = row_gather_cuda.compact_fields(kslot, odd)
+    want_g = row_gather_cuda.compact_fields_reference(kslot, odd)
+    torch.cuda.synchronize()
+    mism = [int((g.view(torch.int16) != w.view(torch.int16)).sum())
+            for g, w in zip(got_g, want_g)]
+    log(f"[row_gather] odd fields {[(str(f.dtype)[6:], f.shape[2], f.data_ptr() % 16) for f in odd]}"
+        f" (dtype, width, pointer mod 16), elements per access {vecs}: kernel vs plain bit "
+        f"mismatches per field {mism}")
+    check(sum(mism) == 0, f"row_gather odd fields: {mism}")
+    check(sorted(set(vecs)) == [1, 8], f"row_gather odd fields: access paths {vecs}")
+    del sat, ray_cases, odd, got_g, want_g
 
     # ---- 5. the world rollout ----
     main = init_state(cfg, seed=0, device=dev)
@@ -279,22 +314,13 @@ def main() -> int:
     cli_phase()
 
     # ---- 9. kernel times and bounds ----
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / reps
+    log(f"[clocks] before the kernel times: {smi_sample()}")
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    ray_bytes, ray_flops = raycast_bound(ray_inputs, raycast_cuda.raycast(*ray_inputs, cfg),
-                                         cfg)
+    ray_bytes, ray_flops, ray_tests, ray_passed = raycast_bound(
+        ray_inputs, raycast_cuda.raycast(*ray_inputs, cfg), cfg)
     sys_bytes = nbytes(sys_inputs) + nbytes(got)
     # The bilinear `surrounding` takes 32 FP32 ops per slot alive after
     # births; the rest of the kernel is integer work.
@@ -324,21 +350,35 @@ def main() -> int:
             "launches": train["launches"][name], "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bytes": nbyte, "fp32_ops": flops})
+            "library_ms": None, "bytes": nbyte, "fp32_ops": flops,
+            **launch_costs(kfn, f"{name}_kernel")})
+    kernels[1].update(ray_tests=ray_tests, cull_passed=ray_passed)
     got = step_cuda.systems(*sys_inputs, cfg)
     want = step_cuda.systems_reference(*sys_inputs, cfg)
     kernels[0]["max_abs_err"] = max(float((g.float() - w.float()).abs().max())
                                     for g, w in zip(got, want))
-    kernels[1]["max_abs_err"] = ray_err
-    kernels += [small_kernel_row(r, timed) for r in small_rays]
+    kernels[1]["max_abs_err"] = max(v for k, v in ray_err.items() if k != "saturated")
+    kernels += [raycast_row(r, timed) for r in small_rays]
     kernels.append(row_gather_row(train["state"], cfg, timed, gather_err,
                                   train["launches"]["row_gather"]))
+    kernels.append(raycast_row(dict(
+        name="raycast_saturated", replaces="madrona_bots_tpu/ops/raycast_pallas.py:708",
+        cfg=sat_cfg, inputs=sat_inputs, launches=sat_launches, err=ray_err["saturated"]),
+        timed))
     for k in kernels:
+        k["share"] = k["bound_ms"] / k["ms"]
+        k.update(usage.get(os.path.basename(k["source"]),
+                           {"registers": None, "spill_bytes": None}))
         lib = "" if k["library_ms"] is None else f", library {k['library_ms']:.4f} ms"
-        log(f"[time] {k['name']}: {k['ms']:.4f} ms/launch, plain {k['plain_ms']:.3f} ms, "
-            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}){lib}")
-    log(f"[time] raycast at 128 agents per world: "
-        f"{timed(lambda: raycast_cuda.raycast(*sat_inputs), 10):.4f} ms/launch")
+        if "ray_tests" in k:
+            lib += (f", {k['fp32_ops']:.4g} FP32 ops, {k['cull_passed']:.0f} of "
+                    f"{k['ray_tests']:.0f} ray tests pass the cull")
+        dev_ms = "none traced" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
+        log(f"[time] {k['name']}: {k['ms']:.4f} ms/launch (device {dev_ms}, host "
+            f"{k['host_ms']:.4f} ms a call), plain {k['plain_ms']:.3f} ms, "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}, share {k['share']:.3f}){lib}; "
+            f"{k['registers']} registers, {k['spill_bytes']} spill bytes")
+    log(f"[clocks] after the kernel times: {smi_sample()}")
 
     # ---- where a tick's time goes ----
     where_the_time_goes(state, sys_inputs, ray_inputs, cfg, one_hot_actions)
@@ -350,6 +390,90 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def batch_times(fn, reps, batches=5) -> list:
+    """ms per call in each of `batches` runs of `reps` calls (CUDA events),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    per_batch = []
+    for _ in range(batches):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        per_batch.append(s.elapsed_time(e) / reps)
+    return per_batch
+
+
+def timed(fn, reps, batches=5) -> float:
+    """ms per call: the median of `batch_times`, so a transient slowdown of
+    the card in one batch does not set the figure."""
+    return sorted(batch_times(fn, reps, batches))[batches // 2]
+
+
+def launch_costs(fn, kernel: str, reps: int = 50) -> dict:
+    """Where one call's time goes, after one warm-up call. `host_ms`: the
+    host clock per call over `reps` calls made back to back without a wait
+    (the wrapper's own work and the launch). `device_ms`: the card's time
+    per call in the CUDA kernels whose name holds `kernel`, from a
+    torch.profiler trace of `reps` calls (None if the trace holds none).
+    CUDA events around back-to-back calls read the larger of the two."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    return {"host_ms": host, "device_ms": dev_us / 1e3 / reps if dev_us else None}
+
+
+def random_actions(gen, dev, heavy: bool = False) -> torch.Tensor:
+    """Random one-hot [W, A, 6] int32 actions; `heavy` also sets the shoot
+    and breed bits at random."""
+    a = torch.nn.functional.one_hot(
+        torch.randint(0, 6, (W, A), generator=gen, device=dev), 6).to(torch.int32)
+    if heavy:
+        a[..., 4] |= torch.randint(0, 2, (W, A), generator=gen, device=dev, dtype=torch.int32)
+        a[..., 5] |= torch.randint(0, 2, (W, A), generator=gen, device=dev, dtype=torch.int32)
+    return a
+
+
+def stepped_state(cfg, dev, actions):
+    """The state the kernels are held and timed on: init_state (seed 7)
+    after 16 plain steps of heavy shoot/breed actions, with one more set of
+    heavy actions set. `actions(heavy=True)` draws them."""
+    from madrona_bots_tpu_torch import init_state, step
+    from madrona_bots_tpu_torch.env import env as env_mod
+
+    state = init_state(cfg, seed=7, device=dev)
+    for _ in range(16):
+        state = step(env_mod.set_actions(state, actions(heavy=True)), cfg, use_kernels=False)
+    env_mod.set_actions(state, actions(heavy=True))
+    return state
+
+
+def saturated_state(dev, gen):
+    """(config, state) with every one of the W x A slots alive (seed 3) and
+    random headings: where the raycast's work is largest."""
+    from madrona_bots_tpu_torch import EnvConfig, init_state
+
+    cfg = EnvConfig(num_worlds=W, init_agents=A, max_agents=A)
+    state = init_state(cfg, seed=3, device=dev)
+    state.heading.copy_(torch.rand((W, A), generator=gen, device=dev) * 6.28)
+    return cfg, state
 
 
 def host_ms(fn, reps=5):
@@ -364,13 +488,43 @@ def host_ms(fn, reps=5):
 
 
 def raycast_bound(inputs, outputs, cfg):
-    """(bytes, FP32 ops) the raycast must move and do on these inputs: each
-    world with n alive agents runs n (n - 1) pairs of 6 ops and 33 ray tests
-    of 8 ops each."""
-    n_alive = inputs[2].sum(dim=1).to(torch.float64)
-    flops = float((n_alive * (n_alive - 1)).sum()) * (33 * 8 + 6)
+    """(bytes, FP32 ops, ray tests, tests that pass the cull) of the
+    raycast on these inputs. Bytes: each input read once, each output
+    written once. Ops: adds, subtractions, products and square roots, one
+    each; compares and selects are not counted, nor the walls and the depth
+    byte (a few ops a ray), which only lowers the bound. Each ordered pair of
+    alive agents in a world takes its offset and q = r^2 - |oc|^2 (6 ops);
+    each of its S + 1 ray tests (the sensor rays and the finder) tc = d . oc
+    and disc = tc^2 + q (5 ops); only a test that passes the exact cull
+    disc >= 0 and tc > near takes the sqrt and th = tc - sqrt(disc) (2 ops).
+    The tests that pass are counted from these inputs with the plain
+    version's arithmetic, one target slot at a time."""
+    from madrona_bots_tpu_torch import trig
+    from madrona_bots_tpu_torch.env.raycast import ray_angle_offsets
+
+    pos, heading, alive = inputs[0], inputs[1], inputs[2]
+    An = heading.shape[1]
+    ang = torch.cat([heading[..., None] + ray_angle_offsets(cfg, heading.device),
+                     heading[..., None]], dim=-1)                       # [W, A, S + 1]
+    dx, dy = trig.sincos(ang)
+    px, py = pos[..., 0], pos[..., 1]
+    r2 = torch.tensor(cfg.agent_radius * cfg.agent_radius, dtype=torch.float32)
+    near = torch.tensor(cfg.near, dtype=torch.float32)
+    slots = torch.arange(An, device=heading.device)
+    passed = torch.zeros((), dtype=torch.int64, device=heading.device)
+    for b in range(An):
+        ocx, ocy = px[:, b:b + 1] - px, py[:, b:b + 1] - py             # target b - source
+        q = r2.to(px.device) - (ocx * ocx + ocy * ocy)
+        tc = dx * ocx[..., None] + dy * ocy[..., None]
+        disc = tc * tc + q[..., None]
+        pair = (alive & alive[:, b:b + 1] & (slots != b))[..., None]
+        passed += ((disc >= 0) & (tc > near.to(px.device)) & pair).sum()
+    n_alive = alive.sum(dim=1).to(torch.float64)
+    pairs = float((n_alive * (n_alive - 1)).sum())
+    tests = pairs * (cfg.sensor_size + 1)
+    flops = 6 * pairs + 5 * tests + 2 * float(passed)
     nbyte = sum(t.numel() * t.element_size() for t in tuple(inputs) + tuple(outputs))
-    return nbyte + 4 * cfg.sensor_size, flops
+    return nbyte + 4 * cfg.sensor_size, flops, tests, float(passed)
 
 
 def raycast_small_shapes(dev, gen):
@@ -426,22 +580,102 @@ def raycast_small_shapes(dev, gen):
     return rows
 
 
-def small_kernel_row(r, timed):
+def smi_sample() -> str:
+    """The card's clocks, power, temperatures and active clock-event reasons
+    (nvidia-smi), or what nvidia-smi said when it could not tell."""
+    p = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+                        "temperature.gpu,temperature.memory,clocks_event_reasons.active",
+                        "--format=csv,noheader"], capture_output=True, text=True)
+    return (p.stdout or p.stderr).strip().replace("\n", " | ")
+
+
+def ptxas_usage(log: str) -> dict:
+    """{source file: {"registers", "spill_bytes"}} from the build's
+    `-Xptxas -v` report, the largest over the file's kernels."""
+    usage, cur = {}, None
+    for line in log.splitlines():
+        m = re.match(r"\[(\w+\.cu)\]", line)
+        if m:
+            cur = usage.setdefault(m.group(1), {"registers": 0, "spill_bytes": 0})
+        elif cur is not None:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = max(cur["registers"], int(m.group(1)))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_bytes"] = max(cur["spill_bytes"], int(m.group(1)) + int(m.group(2)))
+    return usage
+
+
+def tie_states(dev, gen, cfg) -> dict:
+    """Two raycast inputs at cfg's shape built to tie, headings 0, pi/2 and
+    pi: agents on a half-unit grid in a 12 x 12 patch, every fourth slot on
+    the point of the slot before it (85% alive); and agents on integer grid
+    points of the whole arena, stacked in groups of four (all alive)."""
+    from types import SimpleNamespace
+
+    Wn, An = cfg.num_worlds, cfg.max_agents
+    patch = 20.0 + 0.5 * torch.randint(0, 25, (Wn, An, 2), generator=gen, device=dev).float()
+    patch[:, 3::4] = patch[:, 2::4]
+    some = torch.rand((Wn, An), generator=gen, device=dev) < 0.85
+    some[:, 2::4] = True
+    some[:, 3::4] = True
+    grid = torch.stack([
+        torch.randint(1, int(cfg.world_lim_x), (Wn, An // 4), generator=gen, device=dev),
+        torch.randint(1, int(cfg.world_lim_y), (Wn, An // 4), generator=gen, device=dev),
+    ], dim=-1).float().repeat_interleave(4, dim=1)
+    headings = torch.tensor([0.0, math.pi / 2, math.pi], dtype=torch.float32, device=dev)
+    out = {}
+    for label, pos, alive in (("ties_half_grid_patch", patch, some),
+                              ("ties_stacked_integer_grid", grid,
+                               torch.ones((Wn, An), dtype=torch.bool, device=dev))):
+        heading = headings[torch.randint(0, 3, (Wn, An), generator=gen, device=dev)]
+        species = torch.randint(1, cfg.num_species + 1, (Wn, An), generator=gen, device=dev,
+                                dtype=torch.int32)
+        out[label] = (SimpleNamespace(pos=pos.contiguous(), heading=heading, alive=alive,
+                                      species=species), cfg)
+    return out
+
+
+def raycast_row(r, timed):
+    """A raycast row of the kernel table: the kernel timed on r's inputs."""
     from madrona_bots_tpu_torch.env import raycast as raycast_plain
     from madrona_bots_tpu_torch.ops import raycast_cuda
 
     c, args = r["cfg"], r["inputs"]
     ms = timed(lambda: raycast_cuda.raycast(*args, c), 50)
     plain_ms = timed(lambda: raycast_plain.raycast(*args, c), 5)
-    nbyte, flops = raycast_bound(args, raycast_cuda.raycast(*args, c), c)
+    nbyte, flops, tests, passed = raycast_bound(args, raycast_cuda.raycast(*args, c), c)
     bytes_ms, ops_ms = nbyte / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return {"name": r["name"], "route": "cuda",
             "source": "madrona_bots_tpu_torch/csrc/raycast.cu", "replaces": r["replaces"],
             "launches": r["launches"], "max_abs_err": r["err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bytes": nbyte, "fp32_ops": flops,
-            "shape": [c.num_worlds, c.max_agents]}
+            "library_ms": None, "bytes": nbyte, "fp32_ops": flops, "ray_tests": tests,
+            "cull_passed": passed, "shape": [c.num_worlds, c.max_agents],
+            **launch_costs(lambda: raycast_cuda.raycast(*args, c), "raycast_kernel")}
+
+
+def odd_fields(Wn, An, dev, gen) -> list:
+    """Six [Wn, An, d] row-gather sources that no A2C tick has, so that each
+    access path and source dtype of the kernel runs: int32 of width 8 (one
+    8-element load) and 6, u8 of width 5, aligned bf16 of width 8, and bf16
+    of width 16 and i8 of width 32 starting one element past a 16-byte
+    boundary (both take 2-byte accesses)."""
+    def at(offset, d, dtype, values):
+        t = torch.empty(Wn * An * d + offset, dtype=dtype, device=dev)[offset:].view(Wn, An, d)
+        return t.copy_(values)
+
+    def ints(lo, hi, d, dtype=torch.int32):
+        return torch.randint(lo, hi, (Wn, An, d), generator=gen, device=dev, dtype=dtype)
+
+    def normal(d):
+        return (torch.randn((Wn, An, d), generator=gen, device=dev) * 40).to(torch.bfloat16)
+
+    return [ints(-1000, 1001, 8), ints(-1000, 1001, 6), ints(0, 256, 5, torch.uint8),
+            normal(8), at(1, 16, torch.bfloat16, normal(16)),
+            at(1, 32, torch.int8, ints(-128, 128, 32, torch.int8))]
 
 
 def gather_inputs(state, NS, rows=ROWS):
@@ -481,7 +715,9 @@ def row_gather_row(state, cfg, timed, err, launches):
             "replaces": "madrona_bots_tpu/ops/row_gather.py:50", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": nbyte / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms, "bytes": nbyte, "rows_gathered": gathered}
+            "library_ms": library_ms, "bytes": nbyte, "rows_gathered": gathered,
+            **launch_costs(lambda: row_gather_cuda.compact_fields(kslot, fields),
+                           "row_gather_kernel")}
 
 
 def clone_train_states(tstates):

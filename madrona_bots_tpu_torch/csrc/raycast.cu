@@ -4,28 +4,55 @@
 // any W and A <= 1024, the packed and blocked kernels of the same file).
 // Plain version: env/raycast.py::raycast.
 //
-// Design: one thread block per world. A block scan compacts the alive
-// slots, in ascending order, into shared memory (x, y, species, slot); they
-// are both the sources and the targets. Threads stride over the
-// (alive source, ray) pairs, 32 sensor rays plus the finder ray, and each
-// runs a strict `<` running minimum over the compacted targets, so ties go
-// to the lower slot. Dead sources get empty outputs. Outputs are written
-// in the public [W, A, S] layout. The TPU kernel's rank compaction to A/2
-// lanes, pair/triple/quad world tiles, bf16 payload split and expansion
-// epilogue are TPU layout devices and are gone.
+// Bound (chip_smoke.py::raycast_bound counts it from the inputs). A world
+// with n alive agents has n (n - 1) source-target pairs; each takes its
+// offset and q = r^2 - |oc|^2 once (6 ops), and each of its 33 ray tests
+// (32 sensor rays and the finder) tc and disc (5 ops); only a test that
+// passes the exact cull below takes the sqrt and th (2 ops). On the stepped
+// 8192 x 128 state of chip_smoke.py (~33 alive a world, 1% of 293 M tests
+// pass the cull) that is 1.52 GFLOP, 23 us at the H100's published 67
+// TFLOP/s, under the bytes (inputs read once, outputs of 68 B a slot
+// written once: 89 MB, 27 us at 3.35 TB/s). With every slot alive it is
+// 22.9 GFLOP, 341 us. That published rate counts an FFMA as two operations;
+// this file is built with -fmad=false and every product and sum is its own
+// __f*_rn instruction (bit parity with XLA:CPU), so each operation issues
+// at the FFMA instruction rate and the operations' reachable floor is twice
+// their published-peak time: 45 us stepped, 682 us saturated.
 //
-// Arithmetic is plain IEEE f32, op for op as in the plain version: built
-// with -fmad=false and written with __fmul_rn / __fadd_rn / __fdiv_rn /
-// __fsqrt_rn; sin and cos come from trig.cuh (glibc's bits).
-//
-// Bound: FP32 operations. A world with n alive agents runs n * (n - 1)
-// source-target pairs of 6 FP32 ops (the offset and its squared length)
-// and 33 ray-circle tests of 8 ops on each pair (about 2.4 GFLOP at W =
-// 8192 and n ~ 33, ~36 us at the H100's 67 TFLOP/s). The outputs are 68 B
-// per slot (~71 MB, ~21 us at 3.35 TB/s). This kernel recomputes the
-// pair's 6 ops for every ray.
+// Design, per world (one block of kWarps warps):
+//  * The block compacts the alive slots, ascending, into shared memory
+//    (warp ballots, block_rank): position, heading, (slot << 8 | species
+//    byte), and the finder's direction from the heading. Dead slots' rows
+//    (depth 0, semantic -1) are written by the whole block in 16-byte words
+//    (4-byte words when S % 16 != 0), their finder -1.
+//  * One warp per alive source j. Its lanes fill the warp's pair table in
+//    shared memory with one 16-byte entry per compacted target k: (ocx, ocy,
+//    q = r^2 - |oc|^2, tag), with q = -3e38 at k == j as in the plain
+//    version, so the self test leaves the inner loop. The pair's 6 ops run
+//    once per pair instead of once per ray.
+//  * Lane r takes ray r (striding over S when S > 32), its direction from
+//    one glibc reduction that returns cos and sin (trig.cuh). The inner
+//    loop over k ascending is one broadcast shared load, tc = d . oc and
+//    disc = tc^2 + q; the sqrt and th = tc - sqrt(disc) run only when disc
+//    >= 0 and tc > near. That cull is exact: sqrt(disc) >= 0 and rounding is
+//    monotone, so th <= tc, and th > near implies tc > near. A strict `<`
+//    running minimum over ascending k keeps ties on the lower slot.
+//    Some lane of a warp passes the cull for most targets, so a branch per
+//    target would run the sqrt path nearly always: instead, per 32 targets,
+//    a branch-free pass (unrolled by 8) sets a bit for each target with
+//    disc >= 0, and the cull, the sqrt and the update then run for the set
+//    bits only, in ascending order, which is the same fold.
+//  * The finder ray: lane l folds the targets k = l (mod 32) with the same
+//    test, then two warp min-reductions take the smallest (t, tag) pair
+//    (tags ascend with the slot), which is the plain version's sequential
+//    fold (ties to the lower slot).
+//  * A source's S depth bytes and S semantic bytes are one warp store each.
+// Arithmetic is plain IEEE f32, op for op as in the plain version:
+// __fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn under -fmad=false, and sin
+// and cos with glibc's bits.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "scan.cuh"
@@ -34,94 +61,187 @@
 namespace {
 
 constexpr float kInf = 3.0e38f;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kUnroll = 8;       // targets per step of the branch-free pass; divides 32
+constexpr int kNoHit = INT_MAX;  // tag of "no target hit"; above every real tag
 
 struct Params {
   int A, S;
   float lim_x, lim_y, r2, near, scale;
 };
 
+// Distance along d from p to the wall at 0 or lim (kInf when d == 0).
 __device__ __forceinline__ float wall_axis(float p, float d, float lim) {
-  const float hi = d > 0.f ? __fdiv_rn(__fsub_rn(lim, p), d) : kInf;
-  const float lo = d < 0.f ? __fdiv_rn(-p, d) : kInf;
-  return fminf(hi, lo);
+  if (d == 0.f) return kInf;
+  return fminf(__fdiv_rn(d > 0.f ? __fsub_rn(lim, p) : -p, d), kInf);
 }
 
-__global__ void raycast_kernel(const float* __restrict__ pos,
-                               const float* __restrict__ heading,
-                               const uint8_t* __restrict__ alive,
-                               const int* __restrict__ species,
-                               const float* __restrict__ offsets,
-                               uint8_t* __restrict__ depth,
-                               int8_t* __restrict__ semantic,
-                               int* __restrict__ finder, Params p) {
-  const int A = p.A, S = p.S, R = S + 1;
-  const int w = blockIdx.x, a = threadIdx.x, nt = blockDim.x;
-  const bool valid = a < A;
-  const size_t base = (size_t)w * A;
+// The ray-circle test against table entry e = (ocx, ocy, q, tag): tc and
+// disc, and whether the target passes the cull (disc >= 0 and tc > near).
+__device__ __forceinline__ bool cull(const float4& e, float dx, float dy, float near,
+                                     float& tc, float& disc) {
+  tc = __fadd_rn(__fmul_rn(dx, e.x), __fmul_rn(dy, e.y));
+  disc = __fadd_rn(__fmul_rn(tc, tc), e.z);
+  return disc >= 0.f && tc > near;
+}
 
-  extern __shared__ int smem[];
-  float* tx = (float*)smem;       // [A] compacted alive x, ascending slot
-  float* ty = tx + A;             // [A]
-  int* tsp = (int*)(ty + A);      // [A] species
-  int* tslot = tsp + A;           // [A] slot
-  int* scan = tslot + A;          // [A]
-  float* offs = (float*)(scan + A);  // [S]
-
-  const bool al = valid && alive[base + a] != 0;
-  const int incl = mbots::strided_scan(al, scan, a, valid, A, 1);
-  if (al) {
-    tx[incl - 1] = pos[(base + a) * 2];
-    ty[incl - 1] = pos[(base + a) * 2 + 1];
-    tsp[incl - 1] = species[base + a];
-    tslot[incl - 1] = a;
-  }
-  for (int i = a; i < S; i += nt) offs[i] = offsets[i];
-  __syncthreads();
-  const int n = scan[A - 1];
-
-  for (int i = a; i < A * S; i += nt) {
-    if (alive[base + i / S] == 0) {
-      depth[base * S + i] = 0;
-      semantic[base * S + i] = -1;
+// One target of the running minimum (strict `<`, so ties keep the earlier target).
+__device__ __forceinline__ void hit_test(const float4& e, float dx, float dy, float near,
+                                         float& tmin, int& tag) {
+  float tc, disc;
+  if (cull(e, dx, dy, near, tc, disc)) {
+    const float th = __fsub_rn(tc, __fsqrt_rn(disc));
+    if (th > near && th < tmin) {
+      tmin = th;
+      tag = __float_as_int(e.w);
     }
   }
-  if (valid && !al) finder[base + a] = -1;
+}
 
-  for (int i = a; i < n * R; i += nt) {
-    const int j = i / R, ray = i % R;
-    const float sx = tx[j], sy = ty[j];
-    const float hd = heading[base + tslot[j]];
-    const float ang = ray < S ? __fadd_rn(hd, offs[ray]) : hd;
-    const float dx = mbots::cosf_glibc(ang), dy = mbots::sinf_glibc(ang);
-
-    float tmin = kInf;
-    int arg = -1;
-    for (int k = 0; k < n; ++k) {
-      if (k == j) continue;
-      const float ocx = __fsub_rn(tx[k], sx), ocy = __fsub_rn(ty[k], sy);
-      const float oc2 = __fadd_rn(__fmul_rn(ocx, ocx), __fmul_rn(ocy, ocy));
-      const float q = __fsub_rn(p.r2, oc2);
-      const float tc = __fadd_rn(__fmul_rn(dx, ocx), __fmul_rn(dy, ocy));
-      const float disc = __fadd_rn(__fmul_rn(tc, tc), q);
-      const float th = __fsub_rn(tc, __fsqrt_rn(fmaxf(disc, 0.f)));
-      if (disc >= 0.f && th > p.near && th < tmin) {
-        tmin = th;
-        arg = k;
+// The running minimum over table entries [0, n8) for direction (dx, dy).
+// Per 32 targets, a branch-free pass (unrolled by kUnroll) sets a bit for
+// each target with disc >= 0, a superset of those that pass the cull; then
+// only those take the full test and, if they pass, the sqrt, in ascending
+// order, so the fold is the sequential one. Entries [n, n8) are padding
+// with disc < 0.
+__device__ __forceinline__ void nearest(const float4* tab, int n8, float dx, float dy,
+                                        float near, float& tmin, int& tag) {
+  for (int k0 = 0; k0 < n8; k0 += 32) {
+    const int kend = min(n8, k0 + 32);
+    uint32_t mask = 0;
+    for (int k = k0; k < kend; k += kUnroll) {
+      const uint32_t bit = 1u << (k - k0);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float tc, disc;
+        cull(tab[k + u], dx, dy, near, tc, disc);
+        if (disc >= 0.f) mask |= bit << u;
       }
     }
-
-    const size_t src = base + tslot[j];
-    if (ray == S) {
-      finder[src] = tmin < kInf ? tslot[arg] : -1;
-      continue;
+    while (mask) {
+      const int k = k0 + __ffs(mask) - 1;
+      mask &= mask - 1;
+      hit_test(tab[k], dx, dy, near, tmin, tag);
     }
-    float tw = fminf(wall_axis(sx, dx, p.lim_x), wall_axis(sy, dy, p.lim_y));
-    tw = tw > p.near ? tw : kInf;
-    const float t = fminf(tmin, tw);
-    const bool any_hit = t < kInf;
-    const int db = 255 - (int)fminf(floorf(__fmul_rn(t, p.scale)), 255.f);
-    depth[src * S + ray] = any_hit ? (uint8_t)db : 0;
-    semantic[src * S + ray] = any_hit ? (int8_t)(tmin < tw ? tsp[arg] : 0) : -1;
+  }
+}
+
+// A float's bits as an unsigned key that orders like the float (-0 as +0).
+__device__ __forceinline__ uint32_t order_key(float t) {
+  const uint32_t b = __float_as_uint(__fadd_rn(t, 0.f));
+  return b ^ ((uint32_t)((int32_t)b >> 31) | 0x80000000u);
+}
+
+__global__ void __launch_bounds__(kThreads)
+raycast_kernel(const float* __restrict__ pos, const float* __restrict__ heading,
+               const uint8_t* __restrict__ alive, const int* __restrict__ species,
+               const float* __restrict__ offsets, uint8_t* __restrict__ depth,
+               int8_t* __restrict__ semantic, int* __restrict__ finder, Params p) {
+  const int A = p.A, S = p.S, A8 = (A + kUnroll - 1) / kUnroll * kUnroll;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t base = (size_t)blockIdx.x * A;
+
+  extern __shared__ float4 smem[];
+  float4* src = smem;                                   // [A] x, y, heading, tag
+  float4* table = src + A;                              // [kWarps][A8] pair tables
+  float2* fdir = (float2*)(table + kWarps * A8);        // [A] finder cos, sin
+  float* offs = (float*)(fdir + A);                     // [S]
+  uint8_t* dead = (uint8_t*)(offs + S);                 // [A]
+  __shared__ int wcount[kWarps];
+
+  int n = 0;
+  for (int a0 = 0; a0 < A; a0 += kThreads) {
+    const int a = a0 + tid;
+    const bool al = a < A && alive[base + a] != 0;
+    int total;
+    const int rank = mbots::block_rank(al, wcount, &total);
+    if (a < A) {
+      dead[a] = !al;
+      if (!al) finder[base + a] = -1;
+    }
+    if (al) {
+      const float2 xy = reinterpret_cast<const float2*>(pos)[base + a];
+      const float hd = heading[base + a];
+      src[n + rank] = make_float4(xy.x, xy.y, hd,
+                                  __int_as_float((a << 8) | (species[base + a] & 0xff)));
+      float c, s;
+      mbots::sincosf_glibc(hd, &c, &s);
+      fdir[n + rank] = make_float2(c, s);
+    }
+    n += total;
+  }
+  for (int i = tid; i < S; i += kThreads) offs[i] = offsets[i];
+  __syncthreads();
+
+  if (S % 16 == 0) {
+    const int per_row = S / 16;
+    uint4* d4 = reinterpret_cast<uint4*>(depth + base * S);
+    uint4* s4 = reinterpret_cast<uint4*>(semantic + base * S);
+    for (int i = tid; i < A * per_row; i += kThreads) {
+      if (dead[i / per_row]) {
+        d4[i] = make_uint4(0u, 0u, 0u, 0u);
+        s4[i] = make_uint4(~0u, ~0u, ~0u, ~0u);
+      }
+    }
+  } else {
+    const int per_row = S / 4;
+    uint32_t* d1 = reinterpret_cast<uint32_t*>(depth + base * S);
+    uint32_t* s1 = reinterpret_cast<uint32_t*>(semantic + base * S);
+    for (int i = tid; i < A * per_row; i += kThreads) {
+      if (dead[i / per_row]) {
+        d1[i] = 0u;
+        s1[i] = ~0u;
+      }
+    }
+  }
+
+  float4* tab = table + warp * A8;
+  const int n8 = (n + kUnroll - 1) / kUnroll * kUnroll;
+  for (int j = warp; j < n; j += kWarps) {
+    const float4 me = src[j];
+    for (int k = lane; k < n8; k += 32) {
+      if (k < n) {
+        const float4 t = src[k];
+        const float ocx = __fsub_rn(t.x, me.x), ocy = __fsub_rn(t.y, me.y);
+        const float oc2 = __fadd_rn(__fmul_rn(ocx, ocx), __fmul_rn(ocy, ocy));
+        tab[k] = make_float4(ocx, ocy, k == j ? -kInf : __fsub_rn(p.r2, oc2), t.w);
+      } else {
+        tab[k] = make_float4(0.f, 0.f, -kInf, __int_as_float(kNoHit));  // disc < 0
+      }
+    }
+    __syncwarp();
+
+    const size_t row = (base + (__float_as_int(me.w) >> 8)) * S;
+    for (int r = lane; r < S; r += 32) {
+      float dx, dy;
+      mbots::sincosf_glibc(__fadd_rn(me.z, offs[r]), &dx, &dy);
+      float tmin = kInf;
+      int tag = kNoHit;
+      nearest(tab, n8, dx, dy, p.near, tmin, tag);
+
+      float tw = fminf(wall_axis(me.x, dx, p.lim_x), wall_axis(me.y, dy, p.lim_y));
+      tw = tw > p.near ? tw : kInf;
+      const float t = fminf(tmin, tw);
+      const bool any_hit = t < kInf;
+      const int db = 255 - (int)fminf(floorf(__fmul_rn(t, p.scale)), 255.f);
+      depth[row + r] = any_hit ? (uint8_t)db : 0;
+      semantic[row + r] = any_hit ? (int8_t)(tmin < tw ? (tag & 0xff) : 0) : -1;
+    }
+
+    const float2 fd = fdir[j];
+    float tmin = kInf;
+    int tag = kNoHit;
+    for (int k = lane; k < n; k += 32) hit_test(tab[k], fd.x, fd.y, p.near, tmin, tag);
+    // The smallest (t, tag) over the lanes: tags ascend with the slot.
+    const uint32_t key = order_key(tmin);
+    const uint32_t best = __reduce_min_sync(0xffffffffu, key);
+    const uint32_t best_tag = __reduce_min_sync(0xffffffffu, key == best ? (uint32_t)tag : ~0u);
+    if (lane == 0) {
+      finder[base + (__float_as_int(me.w) >> 8)] =
+          best_tag == (uint32_t)kNoHit ? -1 : (int)(best_tag >> 8);
+    }
+    __syncwarp();  // the table is refilled for the next source
   }
 }
 
@@ -133,14 +253,15 @@ extern "C" int mbots_raycast(const void* pos, const void* heading, const void* a
                              float lim_x, float lim_y, float r2, float near,
                              float scale, void* stream) {
   const Params p{A, S, lim_x, lim_y, r2, near, scale};
-  const int threads = A > 128 ? (A + 31) / 32 * 32 : 128;
-  const size_t smem = sizeof(int) * (5 * A + S);
+  const size_t A8 = (size_t)(A + kUnroll - 1) / kUnroll * kUnroll;
+  const size_t smem = sizeof(float4) * (A + kWarps * A8) + (sizeof(float2) + 1) * (size_t)A +
+                      sizeof(float) * (size_t)S;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         raycast_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  raycast_kernel<<<W, threads, smem, (cudaStream_t)stream>>>(
+  raycast_kernel<<<W, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)pos, (const float*)heading, (const uint8_t*)alive,
       (const int*)species, (const float*)offsets, (uint8_t*)depth,
       (int8_t*)semantic, (int*)finder, p);

@@ -6,7 +6,7 @@
 // multiply-adds (__fma_rn) exactly where glibc's x86-64 FMA build fuses
 // them. `trig.py` is the same routine in float64 torch ops; keep the two in
 // step. The constants are those in libm's .rodata (__sincosf_table,
-// __inv_pio4).
+// __inv_pio4). `sincosf_glibc` returns both from one reduction.
 #pragma once
 
 #include <stdint.h>
@@ -46,50 +46,54 @@ __device__ __forceinline__ double reduce_large(uint32_t xi, int* np) {
   return __dmul_rn(__ll2double_rn((long long)res0), 0x1.921fb54442d18p-62);
 }
 
-// glibc sinf_poly: the sine polynomial for even n, the cosine for odd n.
-__device__ __forceinline__ float sinf_poly(double x, double x2,
-                                           const SinCosPoly& p, int n) {
-  if ((n & 1) == 0) {
-    const double x3 = __dmul_rn(x, x2);
-    const double s1 = __fma_rn(x2, -0x1.994eb3774cf24p-13, 0x1.1107605230bc4p-7);
-    const double x5 = __dmul_rn(x3, x2);
-    const double s = __fma_rn(x3, -0x1.555545995a603p-3, x);
-    return __double2float_rn(__fma_rn(x5, s1, s));
+// glibc cosf(y) and sinf(y) from one range reduction, as glibc's sincosf:
+// both take the same n and reduced x; the sine and the cosine polynomial
+// (glibc sincosf_poly) are each evaluated once, and an odd quadrant swaps
+// them. cosf's own call evaluates the polynomial of quadrant n ^ 1 and
+// sinf's that of n with the same operations, so each result has the bits
+// of its own call.
+__device__ __forceinline__ void sincosf_glibc(float y, float* c, float* s) {
+  const uint32_t bits = __float_as_uint(y);
+  const uint32_t top = (bits >> 20) & 0x7ff;
+  const double x = (double)y;
+  int n = 0, q = 0;
+  double xr = x;      // |y| < 0.75 (approximately pi/4): no reduction
+  if (top >= 0x3f4) {
+    if (top < 0x42f) {  // |y| < 120: one multiply-subtract of n * pi/2
+      const double r = __dmul_rn(x, 0x1.45f306dc9c883p+23);
+      n = (__double2int_rz(r) + 0x800000) >> 24;
+      xr = __fma_rn(-(double)n, 0x1.921fb54442d18p+0, x);
+      q = n;
+    } else {
+      xr = reduce_large(bits, &n);
+      q = n + (int)(bits >> 31);
+    }
   }
+  const double sg = ((q & 3) == 1 || (q & 3) == 2) ? -1.0 : 1.0;
+  const double xs = __dmul_rn(xr, sg), x2 = __dmul_rn(xr, xr);
+  const SinCosPoly p = cos_poly((q & 2) != 0);
+  // Sine polynomial: (x + x^3 s1) + x^5 (s2 + x^2 s3).
+  const double x3 = __dmul_rn(xs, x2);
+  const double s1 = __fma_rn(x2, -0x1.994eb3774cf24p-13, 0x1.1107605230bc4p-7);
+  const double x5 = __dmul_rn(x3, x2);
+  const double sp = __fma_rn(x3, -0x1.555545995a603p-3, xs);
+  const float sin_p = __double2float_rn(__fma_rn(x5, s1, sp));
+  // Cosine polynomial: (c0 + x^2 c1 + x^4 c2) + x^6 (c3 + x^2 c4).
   const double x4 = __dmul_rn(x2, x2);
   const double c2 = __fma_rn(x2, p.c4, p.c3);
   const double c1 = __fma_rn(x2, p.c1, p.c0);
   const double x6 = __dmul_rn(x4, x2);
-  const double c = __fma_rn(x4, p.c2, c1);
-  return __double2float_rn(__fma_rn(x6, c2, c));
-}
-
-__device__ __forceinline__ float glibc_sincosf(float y, bool want_cos) {
-  const uint32_t bits = __float_as_uint(y);
-  const uint32_t top = (bits >> 20) & 0x7ff;
-  const double x = (double)y;
-  if (top < 0x3f4) {  // |y| < 0.75 (approximately pi/4): no reduction
-    if (top < 0x398) return want_cos ? 1.0f : y;  // |y| < 2^-12
-    return sinf_poly(x, __dmul_rn(x, x), cos_poly(false), want_cos ? 1 : 0);
+  const double cp = __fma_rn(x4, p.c2, c1);
+  const float cos_p = __double2float_rn(__fma_rn(x6, c2, cp));
+  const bool odd = (n & 1) != 0;
+  *c = odd ? sin_p : cos_p;
+  *s = odd ? cos_p : sin_p;
+  if (top < 0x398) {  // |y| < 2^-12
+    *c = 1.0f;
+    *s = y;
+  } else if (top >= 0x7f8) {  // inf, nan
+    *c = *s = __int_as_float(0x7fc00000);
   }
-  if (top >= 0x7f8) return __int_as_float(0x7fc00000);  // inf, nan
-  int n, q;
-  double xr;
-  if (top < 0x42f) {  // |y| < 120: one multiply-subtract of n * pi/2
-    const double r = __dmul_rn(x, 0x1.45f306dc9c883p+23);
-    n = (__double2int_rz(r) + 0x800000) >> 24;
-    xr = __fma_rn(-(double)n, 0x1.921fb54442d18p+0, x);
-    q = n;
-  } else {
-    xr = reduce_large(bits, &n);
-    q = n + (int)(bits >> 31);
-  }
-  const double s = ((q & 3) == 1 || (q & 3) == 2) ? -1.0 : 1.0;
-  return sinf_poly(__dmul_rn(xr, s), __dmul_rn(xr, xr), cos_poly((q & 2) != 0),
-                   want_cos ? n ^ 1 : n);
 }
-
-__device__ __forceinline__ float cosf_glibc(float y) { return glibc_sincosf(y, true); }
-__device__ __forceinline__ float sinf_glibc(float y) { return glibc_sincosf(y, false); }
 
 }  // namespace mbots

@@ -54,8 +54,8 @@ def raycast(pos, heading, alive, species, cfg: EnvConfig):
     dev = pos.device
     offsets = ray_angle_offsets(cfg, dev)
     ang = heading[..., None] + offsets                           # [W, A, S]
-    cos_a, sin_a = trig.cos(ang), trig.sin(ang)
-    cos_h, sin_h = trig.cos(heading), trig.sin(heading)
+    cos_a, sin_a = trig.sincos(ang)
+    cos_h, sin_h = trig.sincos(heading)
 
     r2 = const(cfg.agent_radius * cfg.agent_radius, torch.float32, dev)
     near = const(cfg.near, torch.float32, dev)

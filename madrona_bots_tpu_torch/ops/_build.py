@@ -10,8 +10,10 @@ point (no PyTorch headers, so a build takes seconds):
 reference arithmetic is. The library's name carries a hash of its sources
 and flags, so an edited source is rebuilt and a stale library never loads.
 Libraries are built at first use, or all at once (one nvcc per source, run
-in parallel) by `build()`. Pointers and the stream go in as `c_void_p`;
-each entry point returns `cudaGetLastError()`.
+in parallel) by `build()`. Every build runs ptxas with `-v` and keeps its
+report (registers, spills) beside the library as `lib<name>_<hash>.ptxas`,
+so a library loaded from the cache still has its report. Pointers and the
+stream go in as `c_void_p`; each entry point returns `cudaGetLastError()`.
 """
 
 from __future__ import annotations
@@ -50,29 +52,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES, verbose: bool = False) -> tuple[float, str]:
+def report_path(name: str) -> Path:
+    """ptxas's `-v` report of the library `library_path(name)`."""
+    return library_path(name).with_suffix(".ptxas")
+
+
+def build(names=SOURCES) -> tuple[float, str]:
     """Compile every library not built yet, one nvcc per source, all at once.
-    Returns (seconds, compiler output); `verbose` adds ptxas's register and
-    shared-memory report."""
+    Returns (seconds, ptxas's register and spill report of every library in
+    `names`, each under a `[<name>.cu]` line, read from the kept reports)."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
-        out = library_path(name)
-        if out.exists():
+        out, rep = library_path(name), report_path(name)
+        if out.exists() and rep.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs.append((name, out, tmp, subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, rep, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs = []
-    for name, out, tmp, proc in jobs:
+    for name, out, rep, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+        rep_tmp = rep.with_name(f"{rep.name}.{os.getpid()}.tmp")
+        rep_tmp.write_text(log)
+        os.replace(rep_tmp, rep)
         os.replace(tmp, out)
-        logs.append(f"[{name}.cu]\n{log}")
+    logs = [f"[{name}.cu]\n{report_path(name).read_text()}" for name in names]
     return time.perf_counter() - t0, "".join(logs)
 
 

@@ -41,6 +41,8 @@ def raycast(pos, heading, alive, species, cfg: EnvConfig):
         raise ValueError(f"raycast kernel: tensors on {pos.device}")
     if A > 1024:
         raise ValueError(f"raycast kernel: max_agents must be <= 1024, got {A}")
+    if S % 4:
+        raise ValueError(f"raycast kernel: sensor_size must be a multiple of 4, got {S}")
     offsets = plain.ray_angle_offsets(cfg, pos.device)
     depth = torch.empty((W, A, S), dtype=torch.uint8, device=pos.device)
     semantic = torch.empty((W, A, S), dtype=torch.int8, device=pos.device)

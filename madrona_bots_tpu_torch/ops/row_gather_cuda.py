@@ -19,9 +19,27 @@ launches = 0
 """Launches of the row-gather kernel since the count was last set to 0."""
 
 MAX_FIELDS = 8
+BLOCK_BYTES = 8192
+"""Output bytes a block of the kernel writes at least (whole worlds)."""
 _DTYPES = {torch.uint8: 0, torch.int8: 1, torch.int32: 2, torch.bfloat16: 3}
 _ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-         + [ctypes.c_void_p] * 4 + [ctypes.c_void_p])
+         + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def vector_width(width: int, elem_bytes: int, src_addr: int, dst_addr: int) -> int:
+    """Elements per memory access of one field in the kernel: 8 (an
+    8-element load, one 16-byte bf16 store) where the row width is a
+    multiple of 8, the source is aligned to its load (at most 16 bytes) and
+    the destination to 16 bytes; else 1 (2-byte stores)."""
+    if width % 8 == 0 and src_addr % min(16, 8 * elem_bytes) == 0 and dst_addr % 16 == 0:
+        return 8
+    return 1
+
+
+def worlds_per_block(K: int, widths: Sequence[int]) -> int:
+    """Worlds a block covers: the fewest that write BLOCK_BYTES of bf16."""
+    per_world = 2 * K * sum(widths)
+    return max(1, -(-BLOCK_BYTES // per_world)) if per_world else 1
 
 
 def compact_fields_reference(kslot: torch.Tensor,
@@ -71,13 +89,16 @@ def compact_fields(kslot: torch.Tensor,
     outs = [torch.empty((W, K, f.shape[2]), dtype=torch.bfloat16, device=kslot.device)
             for f in fields]
     n = len(fields)
+    widths = [f.shape[2] for f in fields]
     src = (ctypes.c_void_p * n)(*[f.data_ptr() for f in fields])
     dst = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
     dtype = (ctypes.c_int * n)(*[_DTYPES[f.dtype] for f in fields])
-    width = (ctypes.c_int * n)(*[f.shape[2] for f in fields])
+    width = (ctypes.c_int * n)(*widths)
+    vec = (ctypes.c_int * n)(*[vector_width(d, f.element_size(), f.data_ptr(), o.data_ptr())
+                               for d, f, o in zip(widths, fields, outs)])
     fn = _build.function("row_gather", "mbots_row_gather", _ARGS)
-    err = fn(kslot.data_ptr(), W, A, K, n, src, dst, dtype, width,
-             torch.cuda.current_stream(kslot.device).cuda_stream)
+    err = fn(kslot.data_ptr(), W, A, K, n, src, dst, dtype, width, vec,
+             worlds_per_block(K, widths), torch.cuda.current_stream(kslot.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"row_gather kernel launch failed: CUDA error {err}")
     launches += 1

@@ -9,7 +9,8 @@ ieee754/flt-32 s_sinf.c, s_cosf.c, sincosf.h), in two copies that follow
 the same operation order:
 
 * here, as float64 torch ops (the plain version, any device);
-* `csrc/trig.cuh`, as a `__device__` double function both kernels include.
+* `csrc/trig.cuh`, as a `__device__` double function the raycast kernel
+  includes.
 
 The algorithm: promote to double; |x| < 0.75 evaluates the polynomial
 directly; |x| < 120 reduces by one fused multiply-subtract of n * pi/2;
@@ -121,7 +122,10 @@ def _reduce_large(bits):
     return signed.to(f64) * _PI63, n
 
 
-def _glibc(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
+def sincos(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(glibc `cosf`, glibc `sinf`), elementwise, float32, from one range
+    reduction: the cosine takes the polynomial of quadrant n ^ 1, the sine
+    that of quadrant n (`csrc/trig.cuh::sincosf_glibc`)."""
     y = y.to(torch.float32).contiguous()
     bits = y.view(torch.int32).to(torch.int64) & MASK32
     top = (bits >> 20) & 0x7FF
@@ -160,18 +164,20 @@ def _glibc(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
     cos_p = _fma(x6, c2p, _fma(x4, c[2], c1p))
 
     odd = (n & 1) == 1
-    use_cos = ~odd if want_cos else odd
-    out = torch.where(use_cos, cos_p, sin_p).to(torch.float32)
     tiny = top < 0x398
-    out = torch.where(tiny, torch.ones_like(y) if want_cos else y, out)
-    return torch.where(top >= 0x7F8, torch.full_like(y, float("nan")), out)
+    nan = torch.full_like(y, float("nan"))
+    cos_y = torch.where(odd, sin_p, cos_p).to(torch.float32)
+    sin_y = torch.where(odd, cos_p, sin_p).to(torch.float32)
+    cos_y = torch.where(top >= 0x7F8, nan, torch.where(tiny, torch.ones_like(y), cos_y))
+    sin_y = torch.where(top >= 0x7F8, nan, torch.where(tiny, y, sin_y))
+    return cos_y, sin_y
 
 
 def sin(x: torch.Tensor) -> torch.Tensor:
     """glibc `sinf`, elementwise, float32."""
-    return _glibc(x, want_cos=False)
+    return sincos(x)[1]
 
 
 def cos(x: torch.Tensor) -> torch.Tensor:
     """glibc `cosf`, elementwise, float32."""
-    return _glibc(x, want_cos=True)
+    return sincos(x)[0]

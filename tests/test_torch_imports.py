@@ -2,6 +2,7 @@
 entry points default to CUDA and never fall back to the CPU quietly."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -30,7 +31,8 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO))
-                                        for p in PKG.rglob("*.py")) + ["chip_smoke.py"])
+                                        for p in PKG.rglob("*.py"))
+                         + ["chip_smoke.py", "kernel_times.py"])
 def test_source_imports_no_jax_package(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
@@ -62,6 +64,42 @@ def test_kernel_library_names_follow_sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}_")
     assert _build.library_path("systems") != _build.library_path("raycast")
+
+
+def test_build_keeps_ptxas_report(tmp_path, monkeypatch):
+    """A library loaded from the build cache still has its ptxas report; a
+    library without its report is built again. nvcc is a stand-in script
+    here that writes the output and one report line."""
+    nvcc = tmp_path / "nvcc"
+    calls = tmp_path / "calls"
+    nvcc.write_text('#!/bin/sh\n'
+                    f'echo x >> "{calls}"\n'
+                    'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+                    ': > "$out"\n'
+                    'echo "ptxas info    : Used 40 registers, 0 bytes spill stores"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    n_calls = lambda: len(calls.read_text().split()) if calls.exists() else 0
+    reports = []
+    for _ in range(2):
+        _, report = _build.build(("raycast", "row_gather"))
+        reports.append(report)
+    assert n_calls() == 2 and reports[0] == reports[1]
+    assert reports[0].count("Used 40 registers") == 2 and "[row_gather.cu]" in reports[0]
+    assert _build.library_path("raycast").exists()
+    _build.report_path("raycast").unlink()
+    _, report = _build.build(("raycast",))
+    assert n_calls() == 3 and report.startswith("[raycast.cu]\nptxas info")
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_times.py"])
+def test_card_scripts_exit_nonzero_without_a_card(script):
+    """Without a visible card each script exits 1 and prints no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    p = subprocess.run([sys.executable, str(REPO / script)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 1 and p.stdout == "", (p.returncode, p.stdout, p.stderr)
 
 
 def test_training_cli_defaults_to_cuda(tmp_path):

@@ -144,6 +144,92 @@ def test_row_gather_wrapper_on_cpu_and_checks():
         row_gather_cuda.compact_fields(kslot, [x] * 9)
 
 
+def _at_offset(shape, dtype, offset):
+    """A contiguous tensor whose data starts `offset` elements into an
+    aligned buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("width, dtype, src_off, dst_off, want", [
+    (32, torch.uint8, 0, 0, 8),        # depth / semantic bytes: 8-byte loads, 16-byte stores
+    (32, torch.int8, 0, 0, 8),
+    (16, torch.bfloat16, 0, 0, 8),     # memory: two 16-byte copies a row
+    (8, torch.int32, 0, 0, 8),
+    (15, torch.bfloat16, 0, 0, 1),     # the scalar field: 30-byte rows
+    (1, torch.uint8, 0, 0, 1),
+    (6, torch.int8, 0, 0, 1),          # width not a multiple of 8
+    (32, torch.uint8, 2, 0, 1),        # source only 2-byte aligned
+    (32, torch.uint8, 1, 0, 1),
+    (16, torch.bfloat16, 2, 0, 1),
+    (16, torch.bfloat16, 1, 0, 1),
+    (8, torch.int32, 2, 0, 1),
+    (32, torch.uint8, 0, 2, 1),        # destination only 4-byte aligned
+    (32, torch.uint8, 0, 1, 1),
+    (24, torch.uint8, 0, 8, 8),        # destination 16-byte aligned
+    (8, torch.int32, 4, 0, 8),
+])
+def test_row_gather_vector_width(width, dtype, src_off, dst_off, want):
+    """The per-field access width the wrapper hands the kernel, from the
+    field's width and its pointers' alignment."""
+    src = _at_offset((2, 4, width), dtype, src_off)
+    dst = _at_offset((2, 3, width), torch.bfloat16, dst_off)
+    got = row_gather_cuda.vector_width(width, src.element_size(), src.data_ptr(),
+                                       dst.data_ptr())
+    assert got == want
+    assert width % got == 0 and dst.data_ptr() % (2 * got) == 0
+    assert src.data_ptr() % min(16, got * src.element_size()) == 0
+
+
+def test_row_gather_plan_for_the_a2c_fields():
+    """The bf16 tick's seven fields: the four byte fields and both memories
+    take 16-byte stores, the 15-wide scalar field 2-byte ones; a block
+    covers enough whole worlds to write BLOCK_BYTES."""
+    widths = [32, 32, 32, 32, 15, 16, 16]
+    dtypes = [torch.uint8, torch.int8, torch.uint8, torch.int8] + [torch.bfloat16] * 3
+    W_, A_, K = 3, 8, 40
+    srcs = [torch.zeros((W_, A_, d), dtype=t) for d, t in zip(widths, dtypes)]
+    outs = [torch.empty((W_, K, d), dtype=torch.bfloat16) for d in widths]
+    assert [row_gather_cuda.vector_width(d, s.element_size(), s.data_ptr(), o.data_ptr())
+            for d, s, o in zip(widths, srcs, outs)] == [8, 8, 8, 8, 1, 8, 8]
+    for k in (40, 12, 1):
+        wpb = row_gather_cuda.worlds_per_block(k, widths)
+        per_world = 2 * k * sum(widths)
+        assert wpb * per_world >= row_gather_cuda.BLOCK_BYTES
+        assert (wpb - 1) * per_world < row_gather_cuda.BLOCK_BYTES
+    assert row_gather_cuda.worlds_per_block(40, widths) == 1
+    assert row_gather_cuda.worlds_per_block(12, widths) == 2
+    assert row_gather_cuda.worlds_per_block(10_000, widths) == 1
+    assert row_gather_cuda.worlds_per_block(0, widths) == 1
+
+
+def test_row_gather_wrapper_device_checks():
+    """Fields on another device than kslot, or tensors on neither the CPU
+    nor a card, raise before any launch; seven CPU fields take the plain
+    version without counting a launch."""
+    r = np.random.default_rng(5)
+    kslot = torch.from_numpy(r.integers(-1, 16, (2, 12)).astype(np.int32))
+    fields = [torch.from_numpy(r.integers(0, 256, (2, 16, 32)).astype(np.uint8)),
+              torch.from_numpy(r.integers(-1, 5, (2, 16, 32)).astype(np.int8)),
+              torch.from_numpy(r.normal(size=(2, 16, 15)).astype(np.float32)).to(torch.bfloat16),
+              torch.from_numpy(r.integers(0, 257, (2, 16, 1)).astype(np.int32))]
+    before = row_gather_cuda.launches
+    got = row_gather_cuda.compact_fields(kslot, fields)
+    assert row_gather_cuda.launches == before
+    for g, w in zip(got, row_gather_cuda.compact_fields_reference(kslot, fields)):
+        assert g.shape == (2, 12, w.shape[-1])
+        np.testing.assert_array_equal(bits(w), bits(g))
+    with pytest.raises(ValueError):
+        row_gather_cuda.compact_fields(kslot, [fields[0].to("meta")])
+    with pytest.raises(ValueError):
+        row_gather_cuda.compact_fields(kslot.to("meta"), [f.to("meta") for f in fields])
+    with pytest.raises(ValueError):
+        row_gather_cuda.compact_fields(kslot, [fields[0][:, :, :8]])   # not contiguous
+    with pytest.raises(ValueError):
+        row_gather_cuda.compact_fields(kslot[:1], fields)               # W differs
+    assert row_gather_cuda.launches == before
+
+
 def test_health_bits_column_matches_jax():
     """Q2: health's int32 bits read as f32 (denormals for small healths),
     then cast to bf16, as the jitted JAX tick does."""
