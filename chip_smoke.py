@@ -6,8 +6,11 @@ and check them.
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build the three kernels from madrona_bots_tpu_torch/csrc (nvcc, in
      parallel);
-  2. the systems kernel against its plain version on the same inputs, at
-     8192 worlds x 128 slots after 16 plain steps of heavy shoot/breed;
+  2. the whole-step systems kernel (one launch: food spawn, action system,
+     the per-world chain, the post-pass) against its plain version on clones
+     of the same states: 8192 worlds x 128 slots after 16 plain steps of
+     heavy shoot/breed, the same with food in every package, every slot
+     alive, and at 256 x 128 each reward setting and the D1 / D3 quirks;
   3. the raycast kernel against its plain version on those states, on a
      saturated one (128 agents per world; 4 rollout ticks from it count the
      kernel's launches there), on two states built to tie at 8192 x 128
@@ -35,12 +38,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   8. the training CLI as a subprocess at --num_worlds 8: create a universe,
      then restore it;
   9. each kernel's time per launch (the raycast also at the saturated
-     state), its plain version's time, its bound, its share of the bound,
+     state; the systems step on clones of the stepped state, made outside
+     the timed window), its plain version's time, its bound, its share of
+     the bound,
      its registers and spills (ptxas's report of the library this run
      loaded, kept beside it by the build) and (row gather) one PyTorch gather's
      time, with the card's clocks, temperatures and clock-event reasons
      sampled before and after; where a rollout tick's and a train tick's
-     time goes.
+     time goes, and a profiled tick's kernel count and idle share.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -124,53 +129,36 @@ def main() -> int:
     def one_hot_actions(heavy: bool = False) -> torch.Tensor:
         return random_actions(gen, dev, heavy)
 
-    # ---- 2. systems kernel against its plain version ----
+    # ---- 2. the whole-step systems kernel against its plain version ----
     t0 = time.perf_counter()
     state = stepped_state(cfg, dev, one_hot_actions)
     torch.cuda.synchronize()
     log(f"[systems] 16 plain steps in {time.perf_counter() - t0:.1f} s; "
         f"alive {int(state.alive.sum())} of {W * A}")
-    sys_inputs, _, _ = step_cuda.prepass(state, cfg)
-    # A second input set with food in every package slot: random cells in
-    # odd worlds; in even worlds all packages of a chunk stacked on the cell
-    # of an agent standing in it, so the eat stage resolves contention.
-    C, P, cw = cfg.num_chunks, cfg.max_food_packages, cfg.chunk_width
-    alive0, cidx, cell = sys_inputs[0], sys_inputs[6], sys_inputs[7]
-    fcell = torch.randint(0, cw * cw, (W, C, P), generator=gen, device=dev,
-                          dtype=torch.int32)
-    agent_cell = torch.full((W, C + 1), -1, dtype=torch.int32, device=dev)
-    agent_cell.scatter_(1, torch.where(alive0, cidx, C).long(), cell)
-    agent_cell = agent_cell[:, :C, None].expand(W, C, P)
-    even = (torch.arange(W, device=dev) % 2 == 0)[:, None, None]
-    fcell = torch.where(even & (agent_cell >= 0), agent_cell, fcell).contiguous()
-    dense = (sys_inputs[:8] + (torch.ones_like(sys_inputs[8]), fcell)
-             + sys_inputs[10:])
-    for label, inputs in (("after_16_steps", sys_inputs), ("dense_food", dense)):
-        got = step_cuda.systems(*inputs, cfg)
-        want = step_cuda.systems_reference(*inputs, cfg)
+    sat_cfg, sat = saturated_state(dev, gen)
+    sys_err = 0.0
+    for label, (s, c) in systems_cases(state, cfg, sat, sat_cfg, dev, gen).items():
+        got = step_cuda.step_systems_cuda(s.clone(), c)
+        want = step_cuda.step_systems_plain(s.clone(), c)
         torch.cuda.synchronize()
-        mism = {}
-        for name, g, w in zip(got._fields, got, want):
-            if name in ("surrp", "surrm"):
-                ok = torch.isclose(g, w, rtol=SURR_RTOL, atol=SURR_ATOL)
-                mism[name] = int((~ok).sum())
-                mism[name + "_bits"] = int((g != w).sum())
-            else:
-                mism[name] = int((g != w).sum())
-        log(f"[systems] {label}: kernel vs plain mismatches {json.dumps(mism)}")
-        log(f"[systems] {label}: births {int(got.born.sum())}, respawns "
-            f"{int(got.respawned.sum())}, eaten {int(got.eaten.sum())}, "
-            f"breeders {int(got.breeder.sum())}, packages consumed "
-            f"{int(got.consumed.sum())}")
-        check(all(v == 0 for k, v in mism.items() if not k.endswith("_bits")),
-              f"systems {label}: {mism}")
-        check(int(got.born.sum()) > 0 and int(got.respawned.sum()) > 0,
+        mism, err = state_mismatches(got, want)
+        n = step_counts(s, got)
+        log(f"[systems] {label} ({c.num_worlds}x{c.max_agents}, reward setting "
+            f"{int(c.reward_setting)}{', D1' if c.quirk_d1_stale_finder else ''}"
+            f"{', D3' if c.quirk_d3_oob_reward else ''}): kernel vs plain {mism['exact']} "
+            f"exact-field mismatches, {mism['surrounding']} surrounding outside tolerance "
+            f"({mism['surrounding_bits']} differ in bits); {json.dumps(n)}")
+        check(mism["exact"] == 0 and mism["surrounding"] == 0, f"systems {label}: {mism}")
+        check(label.startswith("saturated") or n["fresh"] > 0,
               f"systems {label}: no births or respawns")
-    check(int(got.eaten.sum()) > 0, "systems dense_food: nothing eaten")
-    got = step_cuda.systems(*sys_inputs, cfg)
+        if label == "dense_food":
+            check(n["eaten"] > 0, "systems dense_food: nothing eaten")
+        if label == "after_16_steps":
+            check(n["food_placed"] > 0, "systems after_16_steps: no food placed")
+            sys_err = err
+        del got, want
 
     # ---- 3. raycast kernel against its plain version ----
-    sat_cfg, sat = saturated_state(dev, gen)
     ray_cases = {"after_16_steps": (state, cfg), "saturated": (sat, sat_cfg)}
     ray_cases.update(tie_states(dev, gen, cfg))
     for S in (20, 48):
@@ -316,48 +304,24 @@ def main() -> int:
     # ---- 9. kernel times and bounds ----
     log(f"[clocks] before the kernel times: {smi_sample()}")
 
-    def nbytes(ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
+    kernels = [systems_row(state, cfg, sys_err, train["launches"]["systems"])]
     ray_bytes, ray_flops, ray_tests, ray_passed = raycast_bound(
         ray_inputs, raycast_cuda.raycast(*ray_inputs, cfg), cfg)
-    sys_bytes = nbytes(sys_inputs) + nbytes(got)
-    # The bilinear `surrounding` takes 32 FP32 ops per slot alive after
-    # births; the rest of the kernel is integer work.
-    alive0, health0, dmg = sys_inputs[0], sys_inputs[2], sys_inputs[12]
-    h = torch.where(alive0, health0 - cfg.shoot_damage * dmg, health0)
-    h = h + cfg.eat_health * got.eaten.int() - cfg.breed_cost * got.breeder.int()
-    sys_flops = 32.0 * float(((alive0 & (h > 0)) | got.born).sum())
-
-    kernels = []
-    for name, route, src, replaces, kfn, pfn, nbyte, flops, reps in (
-            ("systems", "cuda", "madrona_bots_tpu_torch/csrc/systems.cu",
-             "madrona_bots_tpu/ops/step_pallas.py:146",
-             lambda: step_cuda.systems(*sys_inputs, cfg),
-             lambda: step_cuda.systems_reference(*sys_inputs, cfg),
-             sys_bytes, sys_flops, 5),
-            ("raycast", "cuda", "madrona_bots_tpu_torch/csrc/raycast.cu",
-             "madrona_bots_tpu/ops/raycast_pallas.py:708",
-             lambda: raycast_cuda.raycast(*ray_inputs, cfg),
-             lambda: raycast_plain.raycast(*ray_inputs, cfg),
-             ray_bytes, ray_flops, 2)):
-        ms = timed(kfn, 50)
-        plain_ms = timed(pfn, reps)
-        bytes_ms = nbyte / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_FLOPS * 1e3
-        kernels.append({
-            "name": name, "route": route, "source": src, "replaces": replaces,
-            "launches": train["launches"][name], "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bytes": nbyte, "fp32_ops": flops,
-            **launch_costs(kfn, f"{name}_kernel")})
-    kernels[1].update(ray_tests=ray_tests, cull_passed=ray_passed)
-    got = step_cuda.systems(*sys_inputs, cfg)
-    want = step_cuda.systems_reference(*sys_inputs, cfg)
-    kernels[0]["max_abs_err"] = max(float((g.float() - w.float()).abs().max())
-                                    for g, w in zip(got, want))
-    kernels[1]["max_abs_err"] = max(v for k, v in ray_err.items() if k != "saturated")
+    ray_fn = lambda: raycast_cuda.raycast(*ray_inputs, cfg)  # noqa: E731
+    bytes_ms = ray_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ray_flops / FP32_FLOPS * 1e3
+    kernels.append({
+        "name": "raycast", "route": "cuda", "source": "madrona_bots_tpu_torch/csrc/raycast.cu",
+        "replaces": "madrona_bots_tpu/ops/raycast_pallas.py:708",
+        "launches": train["launches"]["raycast"],
+        "max_abs_err": max(v for k, v in ray_err.items() if k != "saturated"),
+        "ms": timed(ray_fn, 50),
+        "plain_ms": timed(lambda: raycast_plain.raycast(*ray_inputs, cfg), 2),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "bytes": ray_bytes, "fp32_ops": ray_flops,
+        "ray_tests": ray_tests, "cull_passed": ray_passed,
+        **launch_costs(ray_fn, "raycast_kernel")})
     kernels += [raycast_row(r, timed) for r in small_rays]
     kernels.append(row_gather_row(train["state"], cfg, timed, gather_err,
                                   train["launches"]["row_gather"]))
@@ -381,7 +345,7 @@ def main() -> int:
     log(f"[clocks] after the kernel times: {smi_sample()}")
 
     # ---- where a tick's time goes ----
-    where_the_time_goes(state, sys_inputs, ray_inputs, cfg, one_hot_actions)
+    where_the_time_goes(state, ray_inputs, cfg, one_hot_actions)
     train_where(train, cfg)
 
     print(json.dumps({"kernels": kernels}))
@@ -440,14 +404,15 @@ def launch_costs(fn, kernel: str, reps: int = 50) -> dict:
     return {"host_ms": host, "device_ms": dev_us / 1e3 / reps if dev_us else None}
 
 
-def random_actions(gen, dev, heavy: bool = False) -> torch.Tensor:
-    """Random one-hot [W, A, 6] int32 actions; `heavy` also sets the shoot
-    and breed bits at random."""
+def random_actions(gen, dev, heavy: bool = False, worlds: int | None = None) -> torch.Tensor:
+    """Random one-hot [worlds (default W), A, 6] int32 actions; `heavy` also
+    sets the shoot and breed bits at random."""
+    shape = (W if worlds is None else worlds, A)
     a = torch.nn.functional.one_hot(
-        torch.randint(0, 6, (W, A), generator=gen, device=dev), 6).to(torch.int32)
+        torch.randint(0, 6, shape, generator=gen, device=dev), 6).to(torch.int32)
     if heavy:
-        a[..., 4] |= torch.randint(0, 2, (W, A), generator=gen, device=dev, dtype=torch.int32)
-        a[..., 5] |= torch.randint(0, 2, (W, A), generator=gen, device=dev, dtype=torch.int32)
+        a[..., 4] |= torch.randint(0, 2, shape, generator=gen, device=dev, dtype=torch.int32)
+        a[..., 5] |= torch.randint(0, 2, shape, generator=gen, device=dev, dtype=torch.int32)
     return a
 
 
@@ -485,6 +450,186 @@ def host_ms(fn, reps=5):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def systems_cases(state, cfg, sat, sat_cfg, dev, gen) -> dict:
+    """{label: (state, config)} on which the whole-step kernel is held
+    against its plain version: the stepped state (about 10% of its worlds
+    open the food gate); the same with food in every package (in even
+    worlds all packages of a chunk stacked on the cell where an agent of the
+    chunk stands after its move, so the eat stage resolves contention);
+    every slot alive (no free slot), with finders from one sensor pass; and
+    at 256 x 128 one state per reward setting and the D1 / D3 quirks, each
+    after 4 plain steps of heavy shoot/breed."""
+    from madrona_bots_tpu_torch import EnvConfig, init_state, step
+    from madrona_bots_tpu_torch.config import RewardSetting
+    from madrona_bots_tpu_torch.env import env as env_mod
+    from madrona_bots_tpu_torch.ops import step_cuda
+
+    cases = {"after_16_steps": (state, cfg)}
+    dense = state.clone()
+    C, P, cw = cfg.num_chunks, cfg.max_food_packages, cfg.chunk_width
+    inputs, _, _ = step_cuda.prepass(state.clone(), cfg)
+    alive0, cidx, cell = inputs[0], inputs[6], inputs[7]
+    agent_cell = torch.full((W, C + 1), -1, dtype=torch.int32, device=dev)
+    agent_cell.scatter_(1, torch.where(alive0, cidx, C).long(), cell)
+    agent_cell = agent_cell[:, :C, None].expand(W, C, P)
+    fcell = torch.randint(0, cw * cw, (W, C, P), generator=gen, device=dev, dtype=torch.int32)
+    even = (torch.arange(W, device=dev) % 2 == 0)[:, None, None]
+    fcell = torch.where(even & (agent_cell >= 0), agent_cell, fcell)
+    dense.food_count.fill_(1)
+    dense.food_cell.copy_(torch.stack([fcell % cw, fcell // cw], dim=-1))
+    dense.num_food.fill_(C * P)
+    cases["dense_food"] = (dense, cfg)
+    sat_s = env_mod.sensor_pass(sat.clone(), sat_cfg)
+    cases["saturated"] = (env_mod.set_actions(sat_s, random_actions(gen, dev, heavy=True)),
+                          sat_cfg)
+    small = [(f"reward_{st.name}", dict(reward_setting=st)) for st in RewardSetting]
+    small += [("quirk_d1", dict(quirk_d1_stale_finder=True)),
+              ("quirk_d3", dict(quirk_d3_oob_reward=True))]
+    for i, (label, over) in enumerate(small):
+        c = EnvConfig(num_worlds=256, init_agents=INIT, max_agents=A, **over)
+        s = init_state(c, seed=100 + i, device=dev)
+        for _ in range(4):
+            s = step(env_mod.set_actions(s, random_actions(gen, dev, True, 256)), c,
+                     use_kernels=False)
+        cases[label] = (env_mod.set_actions(s, random_actions(gen, dev, True, 256)), c)
+    return cases
+
+
+def state_mismatches(got, want):
+    """({"exact": mismatched elements over every field but `surrounding` and
+    `prev_surrounding`, "surrounding": elements of those outside rtol / atol,
+    "surrounding_bits": elements that differ at all}, max |got - want| over
+    all fields)."""
+    from madrona_bots_tpu_torch.env.state import FIELDS
+
+    m = {"exact": 0, "surrounding": 0, "surrounding_bits": 0}
+    err = 0.0
+    for f in FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if f in ("surrounding", "prev_surrounding"):
+            m["surrounding"] += int((~torch.isclose(g, w, rtol=SURR_RTOL, atol=SURR_ATOL)).sum())
+            m["surrounding_bits"] += int((g != w).sum())
+        else:
+            m["exact"] += int((g != w).sum())
+        if g.numel():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    return m, err
+
+
+def step_counts(before, after) -> dict:
+    """What one systems step did: slots that became alive (births and
+    respawns), food packages present at step start and eaten, package
+    cells the spawn wrote (placements) and the worlds that placed."""
+    had, has = before.food_count > 0, after.food_count > 0
+    placed = (after.food_cell != before.food_cell).any(dim=-1).sum(dim=(1, 2))
+    return {"alive_before": int(before.alive.sum()), "alive_after": int(after.alive.sum()),
+            "fresh": int((after.alive & ~before.alive).sum()),
+            "eaten": int((had & ~has).sum()), "food_placed": int(placed.sum()),
+            "worlds_placed": int((placed > 0).sum())}
+
+
+def step_times(step, state, reps=10, batches=5) -> list:
+    """ms per call of `step` in each of `batches` runs of `reps` calls back
+    to back (CUDA events), after one warm-up call. Each call steps its own
+    clone of `state`, made before the batch's first event."""
+    step(state.clone())
+    torch.cuda.synchronize()
+    per_batch = []
+    for _ in range(batches):
+        states = [state.clone() for _ in range(reps)]
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        for st in states:
+            step(st)
+        e.record()
+        torch.cuda.synchronize()
+        per_batch.append(s.elapsed_time(e) / reps)
+        del states
+    return per_batch
+
+
+def step_costs(step, state, kernel: str, reps: int = 10) -> dict:
+    """`launch_costs` for a call that consumes its state: `host_ms` and
+    `device_ms` over `reps` calls, each on its own clone of `state` made
+    before the clock starts. `kernel` "" counts every CUDA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state.clone())
+    states = [state.clone() for _ in range(reps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in states:
+        step(st)
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    states = [state.clone() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for st in states:
+            step(st)
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    return {"host_ms": host, "device_ms": dev_us / 1e3 / reps if dev_us else None}
+
+
+def step_bound(before, after, cfg):
+    """(bytes, FP32 operations) of one systems step from `before` to
+    `after`, as this run's data needs them. Read once: `alive` of every
+    slot; species, health, position, heading, action and finder of the
+    slots alive at step start; the two sensor rows of the slots that stay
+    alive (copied to the prev rows); per world the food tables, num_food,
+    the key and (once) the step count. Written once: the new per-slot
+    fields and both prev sensor rows of every slot; the hidden, action and
+    prev rows of the slots cleared (dead or fresh); per world the food
+    counts, the package cells the spawn changed, num_food, species counts and
+    rewards; the new step count. Operations, one each for an f32 add,
+    product, quotient, square root, two for a fused multiply-add: 22 for
+    the move, speed, chunk and cell of a slot alive at step start, its
+    glibc sin/cos in double (23) counted twice (the H100's FP64 rate
+    outside the tensor cores is half its FP32 rate); the bilinear
+    `surrounding` (32) and the reward (7) of each slot alive after the
+    step; 6 per species reward. The threefry draws (~100 calls of 20
+    integer rounds a world) are integer work, not counted."""
+    Wn, An = before.alive.shape
+    S, H, NS = cfg.sensor_size, cfg.hidden_state_dim, cfg.num_species
+    CP = cfg.num_chunks * cfg.max_food_packages
+    alive0 = int(before.alive.sum())
+    alive1 = int(after.alive.sum())
+    keep = int((after.alive & before.alive).sum())
+    cleared = Wn * An - keep
+    placed = step_counts(before, after)["food_placed"]
+    reads = (Wn * An + alive0 * (4 + 4 + 8 + 4 + 24 + 4) + keep * 2 * S
+             + Wn * (CP * 4 + CP * 8 + 4 + 16) + 4)
+    writes = (Wn * An * (8 + 4 + 4 + 1 + 4 + 16 + 8 + 4 + 2 * S)
+              + cleared * (2 * 4 * H + 24 + 8 + 8 + 24 + 16 + 4 + 4 + 4)
+              + Wn * (CP * 4 + 4 + 2 * 4 * NS) + 8 * placed + 4)
+    flops = (22 + 2 * 23) * alive0 + (32 + 7) * alive1 + 6 * NS * Wn
+    return reads + writes, float(flops)
+
+
+def systems_row(state, cfg, err, launches) -> dict:
+    """Row 1 of the kernel table: the whole-step kernel and its plain
+    version, each timed on clones of `state`, with the step's bound."""
+    from madrona_bots_tpu_torch.ops import step_cuda
+
+    kfn = lambda s: step_cuda.step_systems_cuda(s, cfg)  # noqa: E731
+    pfn = lambda s: step_cuda.step_systems_plain(s, cfg)  # noqa: E731
+    per = step_times(kfn, state)
+    plain = step_times(pfn, state, reps=2, batches=3)
+    nbyte, flops = step_bound(state, kfn(state.clone()), cfg)
+    bytes_ms, ops_ms = nbyte / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return {"name": "systems", "route": "cuda",
+            "source": "madrona_bots_tpu_torch/csrc/systems.cu",
+            "replaces": "madrona_bots_tpu/ops/step_pallas.py:146", "launches": launches,
+            "max_abs_err": err, "ms": sorted(per)[len(per) // 2], "batches_ms": per,
+            "plain_ms": sorted(plain)[1], "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "bytes": nbyte, "fp32_ops": flops,
+            **step_costs(kfn, state, "step_systems_kernel")}
 
 
 def raycast_bound(inputs, outputs, cfg):
@@ -964,45 +1109,47 @@ def train_where(train, cfg) -> None:
     top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
     log(f"[where] profiled train tick: {launched:.0f} device kernels, device busy "
         f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
-        f"{1 - busy_ms / wall_ms:.3f}); top by device time: "
+        f"{1 - busy_ms / wall_ms:.3f}; against the unprofiled whole_tick "
+        f"{ms['whole_tick']:.3f} ms: {max(0.0, 1 - busy_ms / ms['whole_tick']):.3f}); top by "
+        "device time: "
         + "; ".join(f"{e.key[:48]} {getattr(e, 'self_device_time_total', 0.0) / 2e3:.3f} ms"
                     for e in top))
 
 
-def where_the_time_goes(state, sys_inputs, ray_inputs, cfg, actions) -> None:
-    """Host-clock ms of each piece of a tick, each call synchronised, and a
-    profiler trace of two whole ticks: kernels launched and device busy time."""
+def where_the_time_goes(state, ray_inputs, cfg, actions) -> None:
+    """Host-clock ms of each piece of a rollout tick, each call synchronised
+    (the systems step on the kernel and on the plain path, each stepping its
+    own clone of `state` in place), and a profiler trace of two whole ticks:
+    kernels launched and device busy time."""
     from madrona_bots_tpu_torch.env import env as env_mod
-    from madrona_bots_tpu_torch.env import systems as sy
     from madrona_bots_tpu_torch.learn.obs import construct_obs
     from madrona_bots_tpu_torch.ops import raycast_cuda, step_cuda
 
-    s, t = state, state.step_count
+    s_k, s_p = state.clone(), state.clone()
+    held = [state.clone()]
+
+    def tick():
+        held[0] = env_mod.shift_observations(
+            env_mod.step(env_mod.set_actions(held[0], actions()), cfg), cfg)
+
     parts = {
         "actions": lambda: actions(),
-        "prepass.food_spawn": lambda: sy.food_spawn(
-            s.food_count, s.food_cell, s.num_food, s.world_keys, t, cfg),
-        "prepass.action_system": lambda: sy.action_system(
-            s.pos, s.heading, s.alive, s.species, s.action, s.finder, cfg),
-        "prepass.respawn_draws": lambda: sy.respawn_draws(s.world_keys, t, cfg),
-        "prepass": lambda: step_cuda.prepass(s, cfg),
-        "systems_kernel": lambda: step_cuda.systems(*sys_inputs, cfg),
-        "step_systems": lambda: step_cuda.fused_step_systems(s, cfg),
+        "step_systems": lambda: step_cuda.step_systems_cuda(s_k, cfg),
+        "step_systems_plain": lambda: step_cuda.step_systems_plain(s_p, cfg),
         "raycast_kernel": lambda: raycast_cuda.raycast(*ray_inputs, cfg),
-        "shift_observations": lambda: env_mod.shift_observations(s, cfg),
-        "construct_obs": lambda: construct_obs(s, cfg),
+        "shift_observations": lambda: env_mod.shift_observations(s_k, cfg),
+        "construct_obs": lambda: construct_obs(s_k, cfg),
+        "whole_tick": tick,
     }
     ms = {name: host_ms(fn) for name, fn in parts.items()}
-    ms["postpass"] = ms["step_systems"] - ms["prepass"] - ms["systems_kernel"]
     log(f"[where] host ms per call, synchronised: {json.dumps(ms)}")
+    del s_k, s_p
 
     from torch.profiler import ProfilerActivity, profile
-    tick_state = state.clone()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            tick_state = env_mod.shift_observations(
-                env_mod.step(env_mod.set_actions(tick_state, actions()), cfg), cfg)
+            tick()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 2
     kern = [e for e in prof.key_averages()
@@ -1012,9 +1159,11 @@ def where_the_time_goes(state, sys_inputs, ray_inputs, cfg, actions) -> None:
     top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
     log(f"[where] profiled tick: {launches:.0f} device kernels, device busy "
         f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
-        f"{1 - busy_ms / wall_ms:.3f}); top by device time: "
+        f"{1 - busy_ms / wall_ms:.3f}; against the unprofiled whole_tick "
+        f"{ms['whole_tick']:.3f} ms: {max(0.0, 1 - busy_ms / ms['whole_tick']):.3f}); top by "
+        "device time: "
         + "; ".join(f"{e.key[:48]} {getattr(e, 'self_device_time_total', 0.0) / 2e3:.3f} ms"
-                    for e in top))
+                    f" ({e.count // 2} a tick)" for e in top))
 
 
 def check_golden(EnvConfig, init_state, step, env_mod, dev) -> int:

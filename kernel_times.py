@@ -6,16 +6,23 @@ checkouts of the repo on one CUDA card.
 Imports madrona_bots_tpu_torch from DIR (default: the directory of this
 script), builds its kernels, and makes chip_smoke.py's inputs at 8192 x
 128: the state after 16 plain steps of heavy shoot/breed, and the state
-with every slot alive. Prints one JSON line: for each kernel, the ms per
-launch of each of 5 batches of 50 launches (CUDA events) and their median,
-which is chip_smoke.py's `ms`, and chip_smoke.py's `device_ms` and
-`host_ms` (launch_costs). The kernels are the systems kernel and the
-raycast on the stepped state, the raycast on the saturated state, and the
-row gather of the bf16 A2C tick's seven fields with 10 learner rows per
-class on the stepped state. The inputs depend only on the plain path, so
-two checkouts whose plain paths agree get the same inputs; run it for both
-in one call in turns (parent, change, change, parent). Exits 1 without a
-card.
+with every slot alive. Prints one JSON line: for each entry, the ms per
+call of each of 5 batches (CUDA events) and their median, which is
+chip_smoke.py's `ms`, and chip_smoke.py's `device_ms` and `host_ms`.
+
+`step_systems` is `ops/step_cuda.py::fused_step_systems(state, cfg)`, which
+every checkout has, on the stepped state: 5 batches of 10 calls, each on
+its own clone made before the batch's first event, so one timer covers a
+checkout's whole systems step, whether it is a torch pre-pass, a kernel and
+a torch post-pass or one launch; its `device_ms` sums every CUDA kernel
+the calls ran. `systems` (a checkout that still has the separate systems
+kernel `step_cuda.systems`: that kernel alone on the pre-pass's outputs),
+the raycast on the stepped and on the saturated state, and the row gather
+of the bf16 A2C tick's seven fields with 10 learner rows per class on the
+stepped state take 5 batches of 50 launches. The inputs depend only on the
+plain path, so two checkouts whose plain paths agree get the same inputs;
+run it for both in one call in turns (parent, change, change, parent).
+Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -53,17 +60,25 @@ def main() -> int:
     state = chip_smoke.stepped_state(
         cfg, dev, lambda heavy=False: chip_smoke.random_actions(gen, dev, heavy))
     sat_cfg, sat = chip_smoke.saturated_state(dev, gen)
-    sys_inputs, _, _ = step_cuda.prepass(state, cfg)
     ray = (state.pos, state.heading, state.alive, state.species)
     ray_sat = (sat.pos, sat.heading, sat.alive, sat.species)
     kslot, fields, _, _ = chip_smoke.gather_inputs(state, cfg.num_species)
     torch.cuda.synchronize()
 
     times = {}
-    for name, fn in (("systems", lambda: step_cuda.systems(*sys_inputs, cfg)),
-                     ("raycast", lambda: raycast_cuda.raycast(*ray, cfg)),
-                     ("raycast_saturated", lambda: raycast_cuda.raycast(*ray_sat, sat_cfg)),
-                     ("row_gather", lambda: row_gather_cuda.compact_fields(kslot, fields))):
+    step = lambda s: step_cuda.fused_step_systems(s, cfg)  # noqa: E731
+    per_batch = chip_smoke.step_times(step, state)
+    times["step_systems"] = {"ms": sorted(per_batch)[len(per_batch) // 2],
+                             "batches_ms": per_batch,
+                             **chip_smoke.step_costs(step, state, "")}
+    entries = []
+    if hasattr(step_cuda, "systems"):
+        sys_inputs, _, _ = step_cuda.prepass(state.clone(), cfg)
+        entries.append(("systems", lambda: step_cuda.systems(*sys_inputs, cfg)))
+    entries += [("raycast", lambda: raycast_cuda.raycast(*ray, cfg)),
+                ("raycast_saturated", lambda: raycast_cuda.raycast(*ray_sat, sat_cfg)),
+                ("row_gather", lambda: row_gather_cuda.compact_fields(kslot, fields))]
+    for name, fn in entries:
         per_batch = chip_smoke.batch_times(fn, 50)
         times[name] = {"ms": sorted(per_batch)[len(per_batch) // 2], "batches_ms": per_batch,
                        **chip_smoke.launch_costs(fn, name.split("_saturated")[0] + "_kernel")}

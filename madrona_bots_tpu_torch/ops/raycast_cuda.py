@@ -16,13 +16,24 @@ import torch
 from madrona_bots_tpu_torch.config import EnvConfig
 from madrona_bots_tpu_torch.env import raycast as plain
 from madrona_bots_tpu_torch.ops import _build
-from madrona_bots_tpu_torch.ops.step_cuda import check_inputs
 
 launches = 0
 """Launches of the raycast kernel since the count was last set to 0."""
 
 _ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
          + [ctypes.c_void_p])
+
+
+def check_inputs(kernel: str, specs) -> None:
+    """Raise unless every (name, tensor, shape, dtype) matches and all the
+    tensors are contiguous and on one device."""
+    dev = specs[0][1].device
+    for name, t, shape, dtype in specs:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{kernel} kernel: {name} must be a contiguous "
+                             f"{dtype} tensor of shape {tuple(shape)} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def raycast(pos, heading, alive, species, cfg: EnvConfig):

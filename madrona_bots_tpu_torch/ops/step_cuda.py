@@ -1,28 +1,34 @@
-"""The systems step: PyTorch pre-pass, the systems kernel, PyTorch post-pass.
+"""The systems step: the Step graph minus the sensor pass.
 
 Counterpart of `madrona_bots_tpu/ops/step_pallas.py::fused_step_systems`.
-The pre-pass (food spawn, rotate / move / clamp, the finder-dependent
-step-start quantities, respawn draws) and the post-pass (health chain,
-rewards, stats, food map, canonicalised dead slots) are elementwise torch
-code. In the middle, `systems` runs the per-world chain that needs
-cross-agent feedback: the CUDA kernel `csrc/systems.cu` on a CUDA tensor,
-its plain version `systems_reference` on a CPU tensor.
+On a CUDA state, `step_systems_cuda` runs all of it in one launch of
+`csrc/systems.cu`, in place on the state: food spawn and respawn draws
+(threefry in the kernel), the action system, the per-world chain that needs
+cross-agent feedback (eat, breed, death, tallies, birth claims, surrounding,
+species counts, respawn) and the post-pass (health chain, rewards, stats,
+food map, prev rows, canonicalised dead slots).
 
-The kernel takes its inputs unpacked: food as [W, C, P] count and cell id
-(cell_x + chunk_width * cell_y), `consumed` back as [W, C, P]. The TPU
-kernel's 10-bit packings, byte-packed lane cumsums, rank waves and the
-`grant_ub` trip count exist only for TPU lanes and are gone.
+Its plain version is `step_systems_plain`: the torch pre-pass (`prepass`),
+the chain in torch (`systems_reference`, from env/systems.py) and the torch
+post-pass. It runs on CPU states, and wherever `use_kernels` is False. The
+chain works on unpacked food ([W, C, P] count and cell id cell_x +
+chunk_width * cell_y); the TPU kernel's 10-bit packings, byte-packed lane
+cumsums, rank waves and `grant_ub` trip count exist only for TPU lanes.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
-from typing import NamedTuple
+import functools
+import operator
+from typing import Callable, NamedTuple
 
 import torch
 
-from madrona_bots_tpu_torch.config import EnvConfig
+from madrona_bots_tpu_torch.config import NUM_ACTIONS, EnvConfig
 from madrona_bots_tpu_torch.env import systems as sy
+from madrona_bots_tpu_torch.env.state import FIELDS
 from madrona_bots_tpu_torch.ops import _build
 
 i32 = torch.int32
@@ -71,79 +77,6 @@ def systems_reference(alive0, species, health, posx, posy, speedq, cidx, cell,
 
 
 # ---------------------------------------------------------------------------
-# The kernel's wrapper
-# ---------------------------------------------------------------------------
-
-launches = 0
-"""Launches of the systems kernel since the count was last set to 0."""
-
-_ARGS = ([ctypes.c_void_p] * 14          # inputs
-         + [ctypes.c_void_p] * 13        # outputs
-         + [ctypes.c_int] * 13           # W, A, shape and rule constants
-         + [ctypes.c_float]              # cell_dim
-         + [ctypes.c_void_p])            # stream
-
-
-def check_inputs(kernel: str, specs) -> None:
-    """Raise unless every (name, tensor, shape, dtype) matches and all the
-    tensors are contiguous and on one device."""
-    dev = specs[0][1].device
-    for name, t, shape, dtype in specs:
-        if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-                or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{kernel} kernel: {name} must be a contiguous "
-                             f"{dtype} tensor of shape {tuple(shape)} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-
-
-def systems(alive0, species, health, posx, posy, speedq, cidx, cell,
-            food_count, food_cell_id, drawx, drawy, dmg, breed_ok,
-            cfg: EnvConfig) -> SystemsOut:
-    """Run the systems kernel on CUDA tensors; CPU tensors take
-    `systems_reference`. Either way the inputs must have the kernel's
-    shapes, dtypes and layout."""
-    global launches
-    W, A = alive0.shape
-    C, P, NS, FL = (cfg.num_chunks, cfg.max_food_packages, cfg.num_species,
-                    cfg.respawn_floor)
-    if A > 1024 or A % NS:
-        raise ValueError(f"systems kernel: needs max_agents <= 1024 and a "
-                         f"multiple of num_species, got {A}")
-    ins = [("alive0", alive0, (W, A), torch.bool), ("species", species, (W, A), i32),
-           ("health", health, (W, A), i32), ("posx", posx, (W, A), f32),
-           ("posy", posy, (W, A), f32), ("speedq", speedq, (W, A), i32),
-           ("cidx", cidx, (W, A), i32), ("cell", cell, (W, A), i32),
-           ("food_count", food_count, (W, C, P), i32),
-           ("food_cell_id", food_cell_id, (W, C, P), i32),
-           ("drawx", drawx, (W, NS * FL), f32), ("drawy", drawy, (W, NS * FL), f32),
-           ("dmg", dmg, (W, A), i32), ("breed_ok", breed_ok, (W, A), torch.bool)]
-    check_inputs("systems", ins)
-    if alive0.device.type == "cpu":
-        return systems_reference(*(t for _, t, _, _ in ins), cfg)
-    if alive0.device.type != "cuda":
-        raise ValueError(f"systems kernel: tensors on {alive0.device}")
-
-    def new(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=alive0.device)
-
-    out = SystemsOut(
-        new((W, A), torch.bool), new((W, A), torch.bool), new((W, A), torch.bool),
-        new((W, A), f32), new((W, A), f32), new((W, A), torch.bool),
-        new((W, A), f32), new((W, A), f32), new((W, A), f32), new((W, A), f32),
-        new((W, NS), i32), new((W, NS), i32), new((W, C, P), torch.bool))
-    fn = _build.function("systems", "mbots_systems", _ARGS)
-    err = fn(*[t.data_ptr() for _, t, _, _ in ins], *[t.data_ptr() for t in out],
-             W, A, cfg.num_chunks_x, cfg.num_chunks_y, cfg.chunk_width, P, NS, FL,
-             cfg.shoot_damage, cfg.eat_health, cfg.breed_min_health,
-             cfg.breed_cost, cfg.child_health, cfg.cell_dim,
-             torch.cuda.current_stream(alive0.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"systems kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out
-
-
-# ---------------------------------------------------------------------------
 # The fused step
 # ---------------------------------------------------------------------------
 
@@ -173,19 +106,19 @@ def prepass(state, cfg: EnvConfig):
     return inputs, act, food
 
 
-def fused_step_systems(state, cfg: EnvConfig, use_kernels: bool = True):
-    """The Step graph minus the sensor pass, bit-identical to the JAX
-    `step_systems` on every field except `surrounding` (rtol 1e-5).
-
-    Consumes `state` like the JAX step, which donates it: the fields that
-    pass through with dead or fresh slots cleared (hidden, action, the prev
-    twins) are cleared in place instead of copied."""
+def step_systems_plain(state, cfg: EnvConfig):
+    """The whole-step kernel's plain version: the torch pre-pass, the chain
+    (`systems_reference`) and the torch post-pass. Bit-identical to the
+    jitted JAX `step_systems` on every field except `surrounding` (rtol
+    1e-5). Consumes `state` like the JAX step, which donates it: the fields
+    that pass through with dead or fresh slots cleared (hidden, action, the
+    prev twins) are cleared in place instead of copied."""
     t = state.step_count
     alive0 = state.alive
     A = alive0.shape[1]
     NS = cfg.num_species
     inputs, act, (food_count, food_cell, num_food) = prepass(state, cfg)
-    k = (systems if use_kernels else systems_reference)(*inputs, cfg)
+    k = systems_reference(*inputs, cfg)
 
     # ---- post-pass: health chain, same integer ops as the kernel ran ----
     born, respawned = k.born, k.respawned
@@ -247,3 +180,122 @@ def fused_step_systems(state, cfg: EnvConfig, use_kernels: bool = True):
         species_rewards=rewards,
         step_count=t + 1,
     )
+
+
+def fused_step_systems(state, cfg: EnvConfig, use_kernels: bool = True):
+    """The Step graph minus the sensor pass. Consumes `state`. With
+    `use_kernels` the state's device decides: one kernel launch on a CUDA
+    state, the plain version on a CPU state."""
+    return (step_systems_cuda if use_kernels else step_systems_plain)(state, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The whole-step kernel's wrapper
+# ---------------------------------------------------------------------------
+
+launches = 0
+"""Launches of the systems kernel since the count was last set to 0."""
+
+
+class _Params(ctypes.Structure):
+    """`Params` of csrc/systems.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "A", "H", "S", "ncx", "ncy", "cw", "P", "NS", "FL", "total_food",
+        "shoot_damage", "eat_health", "breed_min_health", "breed_cost",
+        "child_health", "init_health", "reward_setting", "d1", "d3")]
+        + [(n, ctypes.c_float) for n in (
+            "cell_dim", "rotation_delta", "move_speed", "lim_x", "lim_y",
+            "clamp_x", "clamp_y", "edge_x", "edge_y", "recip_init", "recip100")])
+
+
+def _f32(x: float) -> float:
+    return float(torch.tensor(x, dtype=f32))
+
+
+class _Setup(NamedTuple):
+    params: _Params            # held here so that params_addr stays valid
+    params_addr: int
+    get_fields: Callable       # state -> its fields in `WorldState` order
+    specs: tuple               # ((dtype, shape), ...) in the same order
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(cfg: EnvConfig, W: int) -> _Setup:
+    """The kernel's `Params` for cfg and the state's field specs, made once
+    per (cfg, W)."""
+    A, S, H = cfg.max_agents, cfg.sensor_size, cfg.hidden_state_dim
+    C, P, NS = cfg.num_chunks, cfg.max_food_packages, cfg.num_species
+    prm = _Params(
+        A, H, S, cfg.num_chunks_x, cfg.num_chunks_y, cfg.chunk_width, P, NS,
+        cfg.respawn_floor, cfg.total_allowed_food, cfg.shoot_damage, cfg.eat_health,
+        cfg.breed_min_health, cfg.breed_cost, cfg.child_health, cfg.init_health,
+        int(cfg.reward_setting), int(cfg.quirk_d1_stale_finder),
+        int(cfg.quirk_d3_oob_reward),
+        cfg.cell_dim, cfg.rotation_delta, cfg.move_speed, cfg.world_lim_x,
+        cfg.world_lim_y, cfg.world_lim_x - 1.0, cfg.world_lim_y - 1.0,
+        cfg.world_lim_x - 4.0, cfg.world_lim_y - 4.0,
+        _f32(1.0 / cfg.init_agents), _f32(1.0 / 100.0))
+    u8, i8, i64 = torch.uint8, torch.int8, torch.int64
+    specs = dict(
+        pos=((W, A, 2), f32), heading=((W, A), f32), health=((W, A), i32),
+        alive=((W, A), torch.bool), species=((W, A), i32), stats=((W, A, 4), i32),
+        hidden=((W, A, H), f32), action=((W, A, NUM_ACTIONS), i32),
+        surrounding=((W, A, 2), f32), reward=((W, A), f32),
+        sensor_depth=((W, A, S), u8), sensor_semantic=((W, A, S), i8),
+        prev_sensor_depth=((W, A, S), u8), prev_sensor_semantic=((W, A, S), i8),
+        finder=((W, A), i32), prev_species=((W, A), i32), prev_pos=((W, A, 2), f32),
+        prev_health=((W, A), i32), prev_surrounding=((W, A, 2), f32),
+        prev_reward=((W, A), f32), prev_action=((W, A, NUM_ACTIONS), i32),
+        prev_stats=((W, A, 4), i32), prev_hidden=((W, A, H), f32),
+        food_count=((W, C, P), i32), food_cell=((W, C, P, 2), i32), num_food=((W,), i32),
+        species_counts=((W, NS), i32), species_rewards=((W, NS), f32),
+        step_count=((), i32), world_keys=((W, 2), i64))
+    return _Setup(prm, ctypes.addressof(prm), operator.attrgetter(*FIELDS),
+                  tuple((specs[n][1], torch.Size(specs[n][0])) for n in FIELDS))
+
+
+def _bad_field(i: int, t: torch.Tensor, spec, what: str) -> ValueError:
+    return ValueError(f"systems kernel: {FIELDS[i]} must be a {what}{spec[0]} tensor of "
+                      f"shape {tuple(spec[1])}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+
+def step_systems_cuda(state, cfg: EnvConfig):
+    """The whole systems step in one launch of `csrc/systems.cu` on a CUDA
+    state, written in place into it. Returns `state` itself, with a new
+    `step_count` tensor (every block of the launch reads the old one). A
+    CPU state takes `step_systems_plain`. Every field must have its dtype
+    and shape; the kernel also needs them contiguous on the state's card."""
+    global launches
+    W = state.alive.shape[0]
+    setup = _setup(cfg, W)
+    fields = setup.get_fields(state)
+    if state.alive.device.type == "cpu":
+        for i, (t, spec) in enumerate(zip(fields, setup.specs)):
+            if t.dtype is not spec[0] or t.shape != spec[1]:
+                raise _bad_field(i, t, spec, "")
+        return step_systems_plain(state, cfg)
+    dev = state.alive.get_device()
+    if dev < 0:
+        raise ValueError(f"systems kernel: state on {state.alive.device}")
+    if cfg.max_agents > 1024:
+        raise ValueError(f"systems kernel: needs max_agents <= 1024, got {cfg.max_agents}")
+    for i, (t, spec) in enumerate(zip(fields, setup.specs)):
+        if (t.dtype is not spec[0] or t.shape != spec[1] or not t.is_contiguous()
+                or t.get_device() != dev):
+            raise _bad_field(i, t, spec, f"contiguous cuda:{dev} ")
+    step_next = torch.empty((), dtype=i32, device=state.alive.device)
+    ptrs = array.array("Q", [t.data_ptr() for t in fields])
+    ptrs.append(step_next.data_ptr())
+    fn = _build.function("systems", "mbots_step_systems", _ARGS)
+    # The raw handle of the current stream (torch.cuda.current_stream(dev)
+    # .cuda_stream without building a Stream object on every step).
+    err = fn(ptrs.buffer_info()[0], setup.params_addr, W,
+             torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"systems kernel launch failed: CUDA error {err}")
+    launches += 1
+    state.step_count = step_next
+    return state

@@ -1,4 +1,4 @@
-"""The port's systems step (ops/step_cuda.py with systems_reference on the
+"""The port's systems step (ops/step_cuda.py's plain composition on the
 CPU) against the JAX spec path `step_systems(use_pallas=False)`: every
 field exact except `surrounding` (rtol 1e-5, atol 1e-4), on the cases of
 tests/test_step_pallas.py, all 8 reward settings and the D1/D3/D4 quirks;
@@ -196,15 +196,16 @@ def test_claim_slots_matches(seed):
 
 
 def test_systems_wrapper_checks_inputs_and_counts_no_cpu_launch():
+    """The whole-step wrapper takes the plain path on a CPU state and counts
+    no launch; a field of the wrong shape or dtype raises."""
     cfg = EnvConfig(num_worlds=2, init_agents=16, max_agents=32)
     s = state_from_numpy(jax_arrays(_stacked_state()), device="cpu")
-    inputs, _, _ = step_cuda.prepass(s, cfg)
     before = step_cuda.launches
-    for a, b in zip(step_cuda.systems(*inputs, cfg),
-                    step_cuda.systems_reference(*inputs, cfg)):
-        assert torch.equal(a, b)
+    got = step_cuda.step_systems_cuda(s.clone(), cfg)
+    want = step_cuda.step_systems_plain(s.clone(), cfg)
+    assert_arrays_equal(state_to_numpy(want), state_to_numpy(got), "cpu wrapper")
     assert step_cuda.launches == before
-    bad = list(inputs)
-    bad[10] = torch.stack([inputs[10], inputs[10]], dim=-1)[..., 0]    # strided
-    with pytest.raises(ValueError):
-        step_cuda.systems(*bad, cfg)
+    with pytest.raises(ValueError, match="food_cell"):
+        step_cuda.step_systems_cuda(s.replace(food_cell=s.food_cell[..., :1]), cfg)
+    with pytest.raises(ValueError, match="hidden"):
+        step_cuda.step_systems_cuda(s.replace(hidden=s.hidden.double()), cfg)
