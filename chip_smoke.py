@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's world rollout and A2C training on one CUDA card
-and check them.
+"""Drive the PyTorch port's world rollout, A2C training and PPO on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -22,21 +22,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   4. the row-gather kernel against its plain version on the bf16 A2C tick's
      seven fields at 8192 x 128 with 10 learner rows per class, on the
      stepped and on the saturated state (rows dropped), with 3 rows per
-     class (K = 12) on the stepped state, and on six fields no A2C tick has
-     (int32 rows, widths 5 and 6, pointers off 16-byte alignment) so that
-     every access path and dtype of the kernel runs;
+     class (K = 12) on the stepped state, on the PPO record pack's four
+     fields with 8 rows per class (K = 32), and on six fields neither
+     learner has (int32 rows, widths 5 and 6, pointers off 16-byte
+     alignment) so that every access path and dtype of the kernel runs;
   5. the world rollout: init_state, 64 timed ticks of set_actions -> step ->
      shift_observations, construct_obs; each kernel must launch once a tick;
      16 ticks on the kernel and the plain path must agree;
   6. the training tick of the CLI at 8192 x 128, hidden 128, bf16, 10
      learner rows per class: 8 warm-up and 32 timed ticks, one launch of
      each kernel per tick; 4 ticks on the kernel and the plain path agree;
+  6b. PPO at the JAX package's bench shape (bench.py BENCH_MODE=ppo): 8192 x
+     128, hidden 128, bf16, rollout 16, 1 x 8 minibatches, 8 learner rows
+     per class; 1 warm-up and 4 timed iterations, 16 launches of each
+     kernel an iteration, the dropped-row share; one iteration on the
+     kernel and on the plain path from clones agree;
   7. reference checks on small inputs: the kernel path on the card against
-     the plain path on the CPU (world steps and an f32 train tick), and the
-     50-step digests of tests/golden_trajectory.json (recorded from the JAX
-     package);
-  8. the training CLI as a subprocess at --num_worlds 8: create a universe,
-     then restore it;
+     the plain path on the CPU (world steps, an f32 train tick and an f32
+     PPO iteration), and the 50-step digests of tests/golden_trajectory.json
+     (recorded from the JAX package);
+  8. the training CLI as a subprocess at --num_worlds 8, A2C and PPO
+     (--rollout_len 4): create a universe, then restore it;
   9. each kernel's time per launch (the raycast also at the saturated
      state; the systems step on clones of the stepped state, made outside
      the timed window), its plain version's time, its bound, its share of
@@ -44,12 +50,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      its registers and spills (ptxas's report of the library this run
      loaded, kept beside it by the build) and (row gather) one PyTorch gather's
      time, with the card's clocks, temperatures and clock-event reasons
-     sampled before and after; where a rollout tick's and a train tick's
-     time goes, and a profiled tick's kernel count and idle share.
+     sampled before and after; where a rollout tick's, a train tick's and a
+     PPO iteration's time goes, and a profiled tick's (iteration's) kernel
+     count and idle share.
 
-Prints a `kernels` JSON line, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
-device or without the package beside it. Timings use CUDA events; a
+Prints a `kernels` JSON line (each row's `launches` from its main path's
+run, `ppo_launches` in a PPO iteration at the bench shape), the card's
+name and power limit, and as the last line {"ok": true, "device": {...}}.
+Exits non-zero without a CUDA device or without the package beside it. Timings use CUDA events; a
 kernel's time (`ms`) is the median of 5 batches of launches back to back,
 beside its device time from a profiler trace (`device_ms`) and the host
 time of one wrapper call (`host_ms`).
@@ -77,6 +85,8 @@ W, A, INIT = 8192, 128, 32
 TICKS = 64
 HIDDEN, ROWS = 128, 10         # bench.py's A2C shape: hidden 128, 10 slots
 TRAIN_WARM, TRAIN_TICKS = 8, 32
+PPO_T, PPO_M, PPO_SLOTS = 16, 8, 8   # bench.py's PPO: rollout 16, 1 x 8, 8 slots
+PPO_ITERS = 4
 LR = 3e-4
 DEVICE = "cuda"
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -209,6 +219,20 @@ def main() -> int:
         check(label != "saturated" or dropped > 0, "row_gather saturated: no rows dropped")
         gather_err = max([gather_err] + [float((g.float() - w.float()).abs().max())
                                          for g, w in zip(got_g, want_g)])
+    ppo_gather = ppo_gather_inputs(state, cfg.num_species, gen)
+    kslot, fields, dropped, members = ppo_gather
+    got_g = row_gather_cuda.compact_fields(kslot, fields)
+    want_g = row_gather_cuda.compact_fields_reference(kslot, fields)
+    torch.cuda.synchronize()
+    mism = [int((g.view(torch.int16) != w.view(torch.int16)).sum())
+            for g, w in zip(got_g, want_g)]
+    log(f"[row_gather] ppo_records, {PPO_SLOTS} rows per class: 4 fields (depth, semantic, "
+        f"12 scalar columns, memory), kslot {tuple(kslot.shape)}, {int((kslot >= 0).sum())} "
+        f"rows gathered, {dropped} of {members} class rows dropped; kernel vs plain bit "
+        f"mismatches per field {mism}")
+    check(sum(mism) == 0, f"row_gather ppo_records: {mism}")
+    ppo_gather_err = max(float((g.float() - w.float()).abs().max())
+                         for g, w in zip(got_g, want_g))
     kslot, _, _, _ = gather_inputs(state, cfg.num_species, ROWS)
     odd = odd_fields(W, A, dev, gen)
     vecs = [row_gather_cuda.vector_width(f.shape[2], f.element_size(), f.data_ptr(), 0)
@@ -276,6 +300,9 @@ def main() -> int:
     # ---- 6. the training tick at the CLI's bench shape ----
     train = train_phase(cfg, dev)
 
+    # ---- 6b. PPO at the bench shape ----
+    ppo_run = ppo_phase(cfg, dev)
+
     # ---- 7. reference checks on small inputs ----
     small = EnvConfig(num_worlds=4, init_agents=32, max_agents=64)
     rng = np.random.default_rng(11)
@@ -297,9 +324,11 @@ def main() -> int:
     golden_ok = check_golden(EnvConfig, init_state, step, env_mod, dev)
     log(f"[reference] tests/golden_trajectory.json: {golden_ok} steps match")
     reference_train_tick(dev)
+    reference_ppo(dev)
 
     # ---- 8. the training CLI ----
     cli_phase()
+    cli_phase(["--algo", "ppo", "--rollout_len", "4"], "ppo")
 
     # ---- 9. kernel times and bounds ----
     log(f"[clocks] before the kernel times: {smi_sample()}")
@@ -323,13 +352,22 @@ def main() -> int:
         "ray_tests": ray_tests, "cull_passed": ray_passed,
         **launch_costs(ray_fn, "raycast_kernel")})
     kernels += [raycast_row(r, timed) for r in small_rays]
-    kernels.append(row_gather_row(train["state"], cfg, timed, gather_err,
+    kslot, fields, _, _ = gather_inputs(train["state"], cfg.num_species)
+    kernels.append(row_gather_row("row_gather", kslot, fields, gather_err,
                                   train["launches"]["row_gather"]))
     kernels.append(raycast_row(dict(
         name="raycast_saturated", replaces="madrona_bots_tpu/ops/raycast_pallas.py:708",
         cfg=sat_cfg, inputs=sat_inputs, launches=sat_launches, err=ray_err["saturated"]),
         timed))
+    kernels.append(row_gather_row("row_gather_ppo", ppo_gather[0], ppo_gather[1],
+                                  ppo_gather_err, ppo_run["launches"]["row_gather"]))
+    # Launches of each row's kernel at the row's shape in one PPO iteration at
+    # the bench shape (the 8 x 32 and 4 x 33 shapes are not on that path).
+    kernel_of = {"systems": "systems", "raycast": "raycast", "raycast_saturated": "raycast",
+                 "row_gather": "row_gather", "row_gather_ppo": "row_gather"}
     for k in kernels:
+        k["ppo_launches"] = (ppo_run["per_iteration"][kernel_of[k["name"]]]
+                             if k["name"] in kernel_of else 0)
         k["share"] = k["bound_ms"] / k["ms"]
         k.update(usage.get(os.path.basename(k["source"]),
                            {"registers": None, "spill_bytes": None}))
@@ -339,7 +377,8 @@ def main() -> int:
                     f"{k['ray_tests']:.0f} ray tests pass the cull")
         dev_ms = "none traced" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         log(f"[time] {k['name']}: {k['ms']:.4f} ms/launch (device {dev_ms}, host "
-            f"{k['host_ms']:.4f} ms a call), plain {k['plain_ms']:.3f} ms, "
+            f"{k['host_ms']:.4f} ms a call; launches {k['launches']}, {k['ppo_launches']} a PPO "
+            f"iteration), plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}, share {k['share']:.3f}){lib}; "
             f"{k['registers']} registers, {k['spill_bytes']} spill bytes")
     log(f"[clocks] after the kernel times: {smi_sample()}")
@@ -347,6 +386,7 @@ def main() -> int:
     # ---- where a tick's time goes ----
     where_the_time_goes(state, ray_inputs, cfg, one_hot_actions)
     train_where(train, cfg)
+    ppo_where(ppo_run, cfg)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -827,24 +867,25 @@ def gather_inputs(state, NS, rows=ROWS):
     """The bf16 tick's row-gather inputs for `state`: (kslot, the seven
     fields, class rows dropped, class rows)."""
     from madrona_bots_tpu_torch.learn import a2c
-    from madrona_bots_tpu_torch.learn.pack import compact_slots, kslot_from_class_slots
+    from madrona_bots_tpu_torch.learn.pack import (class_major, compact_slots,
+                                                   kslot_from_class_slots)
 
     m_full, lm_full = a2c.class_masks(state, NS)
-    Wn, An = m_full.shape
-    m = m_full.reshape(Wn, An // NS, NS).permute(2, 0, 1).reshape(NS * Wn, An // NS)
+    Wn = m_full.shape[0]
+    m = class_major(m_full, NS)
     slot, valid, keep = compact_slots(m, rows)
     kslot = kslot_from_class_slots(slot, valid, Wn, NS)
     return (kslot, a2c.learner_fields(state, lm_full), int(m.sum() - keep.sum()),
             int(m.sum()))
 
 
-def row_gather_row(state, cfg, timed, err, launches):
-    """Row 5 of the kernel table, timed on the trained state's fields. The
-    library call is one torch.gather of the same rows from the seven fields
-    concatenated in bf16 beforehand."""
+def row_gather_row(name, kslot, fields, err, launches):
+    """A row-gather row of the kernel table, timed on these inputs (row 5:
+    the trained state's seven A2C fields; `row_gather_ppo`: the PPO record
+    pack's four). The library call is one torch.gather of the same rows
+    from the fields concatenated in bf16 beforehand."""
     from madrona_bots_tpu_torch.ops import row_gather_cuda
 
-    kslot, fields, _, _ = gather_inputs(state, cfg.num_species)
     ms = timed(lambda: row_gather_cuda.compact_fields(kslot, fields), 50)
     plain_ms = timed(lambda: row_gather_cuda.compact_fields_reference(kslot, fields), 10)
     payload = torch.cat([f.to(torch.bfloat16) for f in fields], dim=-1)
@@ -855,7 +896,7 @@ def row_gather_row(state, cfg, timed, err, launches):
     nbyte = (kslot.numel() * 4
              + gathered * sum(f.shape[2] * f.element_size() for f in fields)
              + Wn * K * sum(f.shape[2] for f in fields) * 2)
-    return {"name": "row_gather", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "madrona_bots_tpu_torch/csrc/row_gather.cu",
             "replaces": "madrona_bots_tpu/ops/row_gather.py:50", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -995,9 +1036,173 @@ def reference_train_tick(dev) -> None:
               and float(diff.max()) <= 2 * LR, f"train tick card vs CPU, tick {t + 1}")
 
 
-def cli_phase() -> None:
-    """The training CLI in a subprocess at --num_worlds 8: create a
-    universe with 3 epochs, then restore it for 2 more."""
+def ppo_gather_inputs(state, NS, gen):
+    """The PPO record pack's row-gather inputs on `state`, with random
+    actions, log-probabilities, values and memory: (kslot [W, NS *
+    PPO_SLOTS], the four fields of `ppo.record_fields`, class rows dropped,
+    class rows)."""
+    from madrona_bots_tpu_torch.learn import a2c, ppo
+    from madrona_bots_tpu_torch.learn.pack import (class_major, compact_slots,
+                                                   kslot_from_class_slots)
+
+    m_full, _ = a2c.class_masks(state, NS)
+    Wn, An = m_full.shape
+    dev = m_full.device
+    m = class_major(m_full, NS)
+    slot, valid, keep = compact_slots(m, PPO_SLOTS)
+    kslot = kslot_from_class_slots(slot, valid, Wn, NS)
+    action = torch.randint(0, 6, (Wn, An), generator=gen, device=dev) * m_full
+    logp = -3.0 * torch.rand((Wn, An), generator=gen, device=dev) * m_full
+    value = 10.0 * torch.randn((Wn, An), generator=gen, device=dev) * m_full
+    s = state.replace(hidden=torch.randn(state.hidden.shape, generator=gen, device=dev))
+    return (kslot, ppo.record_fields(s, action, logp, value), int(m.sum() - keep.sum()),
+            int(m.sum()))
+
+
+def metrics_close(got: dict, want: dict, rtol: float = 1e-4, atol: float = 1e-5) -> list:
+    """Names of the metrics outside rtol / atol (dropped rows: not equal)."""
+    bad = []
+    for k, w in want.items():
+        g, w = float(got[k]), float(w)
+        if (g != w) if k.endswith("_dropped_rows") else abs(g - w) > atol + rtol * abs(w):
+            bad.append(k)
+    return bad
+
+
+def ppo_phase(cfg, dev) -> dict:
+    """PPO as the JAX package's bench.py BENCH_MODE=ppo runs it: init_state
+    seed 0, train states from key(1), iteration i keyed fold_in(key(2), i);
+    bf16, rollout 16, 1 x 8 minibatches, 8 learner rows per class. 1 warm-up
+    and 4 timed iterations (CUDA events), each ending in the CLI's one
+    metrics copy; then one iteration on the kernel and on the plain path
+    from cloned state, parameters and key."""
+    from madrona_bots_tpu_torch import init_state, rng
+    from madrona_bots_tpu_torch.config import NUM_ACTIONS
+    from madrona_bots_tpu_torch.learn import a2c, ppo
+    from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+    from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+    from madrona_bots_tpu_torch.ops import raycast_cuda, row_gather_cuda, step_cuda
+
+    NS = cfg.num_species
+    gen = SpeciesNetGenerator(cfg.obs_dim, NUM_ACTIONS, HIDDEN, cfg.hidden_state_dim, seed=0)
+    models = [ActorCritic.from_generator(gen, device=dev) for _ in range(NS)]
+    kw = dict(rollout_len=PPO_T, num_minibatches=PPO_M, compute_dtype=torch.bfloat16,
+              learner_slots_per_class=PPO_SLOTS)
+    it, opt = ppo.make_ppo_trainer(models, cfg, **kw)
+    tstates = a2c.init_train_states(models, rng.key(1, dev), opt)
+    p0 = [t.params.clone() for t in tstates]
+    state = init_state(cfg, 0, dev)
+    key = rng.key(2, dev)
+    t0 = time.perf_counter()
+    state, tstates, m = it(state, tstates, rng.fold_in(key, 0))
+    a2c.stack_metrics(m).cpu()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    held_mb = torch.cuda.memory_allocated(dev) / 2**20
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_cuda.launches = raycast_cuda.launches = row_gather_cuda.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host_rows = []
+    host0 = time.perf_counter()
+    start.record()
+    for i in range(PPO_ITERS):
+        state, tstates, m = it(state, tstates, rng.fold_in(key, 1 + i))
+        host_rows.append(a2c.stack_metrics(m).cpu())      # the CLI's one copy
+    end.record()
+    torch.cuda.synchronize()
+    host_ms_it = (time.perf_counter() - host0) * 1e3 / PPO_ITERS
+    launches = {"systems": step_cuda.launches, "raycast": raycast_cuda.launches,
+                "row_gather": row_gather_cuda.launches}
+    ms = start.elapsed_time(end) / PPO_ITERS
+    log(f"[ppo] {PPO_ITERS} iterations at {cfg.num_worlds}x{cfg.max_agents}, hidden {HIDDEN}, "
+        f"bf16, rollout {PPO_T}, 1 x {PPO_M} minibatches, {PPO_SLOTS} learner rows per class "
+        f"(warm-up 1 iteration {warm_s:.1f} s): {ms:.3f} ms/iteration, "
+        f"{cfg.num_worlds * PPO_T * 1000.0 / ms:.1f} env-steps/s (CUDA events; host clock "
+        f"{host_ms_it:.3f} ms/iteration)")
+    log(f"[ppo] device memory: {held_mb:.0f} MiB allocated before the timed iterations "
+        f"(this phase's state and nets and the earlier phases' tensors), peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB during them")
+    check(launches == {k: PPO_T * PPO_ITERS for k in launches}, f"ppo launches {launches}")
+    per_iteration = {k: v // PPO_ITERS for k, v in launches.items()}
+    log(f"[ppo] launches per iteration {json.dumps(per_iteration)}")
+    hist = torch.stack(host_rows)
+    names = list(m)
+    check(bool(torch.isfinite(hist).all()), "ppo metrics not finite")
+    moved = max(float((t.params - p).abs().max()) for t, p in zip(tstates, p0))
+    check(moved > 0, "ppo: parameters did not move")
+    col = {n: i for i, n in enumerate(names)}
+    rows = PPO_T * sum(float(hist[:, col[f"species_{s}_count"]].sum()) for s in range(1, NS + 1))
+    dropped = sum(float(hist[:, col[f"species_{s}_dropped_rows"]].sum()) for s in range(1, NS + 1))
+    last = {n: round(float(v), 5) for n, v in zip(names, hist[-1]) if n.startswith("species_1_")}
+    log(f"[ppo] metrics finite; params moved (max |delta| {moved:.3e}); dropped-row share "
+        f"{dropped / max(rows, 1.0):.6f} ({dropped:.0f} of {rows:.0f} class rows); species 1 "
+        f"last iteration {json.dumps(last)}")
+
+    it_plain, _ = ppo.make_ppo_trainer(models, cfg, use_kernels=False, **kw)
+    ks, ps = state.clone(), state.clone()
+    kts, pts = clone_train_states(tstates), clone_train_states(tstates)
+    sub = rng.fold_in(key, 1000)
+    t0 = time.perf_counter()
+    ks, kts, km = it(ks, kts, sub)
+    ps, pts, pm = it_plain(ps, pts, sub)
+    torch.cuda.synchronize()
+    mism, _ = state_mismatches(ks, ps)
+    pdiff = max(float((a.params - b.params).abs().max()) for a, b in zip(kts, pts))
+    bad = metrics_close(km, pm)
+    log(f"[ppo] 1 iteration kernels vs plain ({time.perf_counter() - t0:.1f} s): "
+        f"{mism['exact']} exact-field mismatches, {mism['surrounding']} surrounding outside "
+        f"tolerance; params max |diff| {pdiff:.3e}; metrics outside tolerance {bad}")
+    check(mism["exact"] == 0 and mism["surrounding"] == 0, f"ppo kernel vs plain: {mism}")
+    check(pdiff <= 1e-6 and not bad, f"ppo kernel vs plain params {pdiff}, metrics {bad}")
+    del ks, ps, kts, pts
+    return dict(state=state, tstates=tstates, models=models, it=it, metrics=m, key=key,
+                launches=launches, per_iteration=per_iteration, ms=ms)
+
+
+def reference_ppo(dev) -> None:
+    """An f32 PPO iteration at 4 x 64 (rollout 4, 2 minibatches, 8 learner
+    rows per class) on the card against the same iteration on the CPU's
+    plain path, from the same state, parameters and key."""
+    from madrona_bots_tpu_torch import EnvConfig, init_state, rng
+    from madrona_bots_tpu_torch.config import NUM_ACTIONS
+    from madrona_bots_tpu_torch.env.state import FIELDS, state_from_numpy, state_to_numpy
+    from madrona_bots_tpu_torch.learn import a2c, ppo
+    from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+    from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+
+    small = EnvConfig(num_worlds=4, init_agents=32, max_agents=64)
+    gen = SpeciesNetGenerator(small.obs_dim, NUM_ACTIONS, 32, small.hidden_state_dim, seed=4)
+    models = [ActorCritic.from_generator(gen) for _ in range(small.num_species)]
+    kw = dict(rollout_len=4, num_minibatches=2, learner_slots_per_class=8)
+    it_cpu, opt = ppo.make_ppo_trainer(models, small, use_kernels=False, **kw)
+    it_card, _ = ppo.make_ppo_trainer(models, small, **kw)
+    tc = a2c.init_train_states(models, rng.key(3), opt)
+    sc = init_state(small, 6, "cpu")
+    sg = state_from_numpy(state_to_numpy(sc), dev)
+    tg = tuple(a2c.SpeciesTrainState(x.params.to(dev), a2c.AdamState(
+        *(y.to(dev) for y in x.opt_state))) for x in tc)
+    sc, tc, mc = it_cpu(sc, tc, rng.key(60))
+    sg, tg, mg = it_card(sg, tg, rng.key(60, dev))
+    ng, nc = state_to_numpy(sg), state_to_numpy(sc)
+    floats = ("hidden", "surrounding")
+    bad = [f for f in FIELDS if f not in floats and not np.array_equal(ng[f], nc[f])]
+    hid = float(np.abs(ng["hidden"] - nc["hidden"]).max())
+    surr = np.allclose(ng["surrounding"], nc["surrounding"], rtol=SURR_RTOL, atol=SURR_ATOL)
+    diff = torch.cat([(g.params.cpu() - c.params).abs() for g, c in zip(tg, tc)])
+    sure = torch.cat([c.opt_state.mu.abs() >= 1e-7 for c in tc])
+    well = float(diff[sure].max())
+    mbad = metrics_close({k: float(v) for k, v in mg.items()}, mc)
+    log(f"[reference] f32 PPO iteration at 4x64 (rollout 4, 2 minibatches, 8 learner rows), "
+        f"card vs CPU: exact-field mismatches {bad}; hidden max |diff| {hid:.3e}; params max "
+        f"|diff| {float(diff.max()):.3e} ({well:.3e} where |mu| >= 1e-7); metrics outside "
+        f"tolerance {mbad}; dropped rows {sum(float(v) for k, v in mc.items() if 'dropped' in k):.0f}")
+    check(not bad and surr and hid <= 1e-5 and well <= 1e-6 and float(diff.max()) <= 2 * LR
+          and not mbad, "PPO iteration card vs CPU")
+
+
+def cli_phase(flags=(), label: str = "") -> None:
+    """The training CLI in a subprocess at --num_worlds 8 with `flags`:
+    create a universe with 3 epochs, then restore it for 2 more."""
     import glob
     import tempfile
 
@@ -1005,9 +1210,10 @@ def cli_phase() -> None:
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         save = os.path.join(tmp, "ckpts")
-        base = [sys.executable, "-m", "madrona_bots_tpu_torch.learn.training_loop",
-                "--num_worlds", "8", "--hidden_dim", "32", "--universe_id", "smoke",
-                "--model_save_dir", save] + ([] if DEVICE == "cuda" else ["--device", DEVICE])
+        base = ([sys.executable, "-m", "madrona_bots_tpu_torch.learn.training_loop",
+                 "--num_worlds", "8", "--hidden_dim", "32", "--universe_id", "smoke",
+                 "--model_save_dir", save] + list(flags)
+                + ([] if DEVICE == "cuda" else ["--device", DEVICE]))
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
         outs = []
@@ -1026,8 +1232,9 @@ def cli_phase() -> None:
         want = [f"universe_smoke/species_{s}/latest_model_epoch_5.ckpt.npz" for s in range(1, 5)]
         check(latest == want, f"CLI checkpoints {latest}")
         check("Loading model from" in outs[1][2], "CLI restore did not load")
-    log(f"[cli] create (3 epochs) {outs[0][0]:.1f} s, {outs[0][1]}; restore (2 epochs) "
-        f"{outs[1][0]:.1f} s, {outs[1][1]}; latest_model_epoch_5 for 4 species")
+    log(f"[cli]{''.join(' ' + w for w in (label, *flags) if w)} create (3 epochs) "
+        f"{outs[0][0]:.1f} s, {outs[0][1]}; restore (2 epochs) {outs[1][0]:.1f} s, "
+        f"{outs[1][1]}; latest_model_epoch_5 for 4 species")
 
 
 def train_where(train, cfg) -> None:
@@ -1095,17 +1302,7 @@ def train_where(train, cfg) -> None:
     ms["backward_adam_metrics"] = ms["species_updates"] - ms["forwards"]
     log(f"[where] train tick host ms per call, synchronised: {json.dumps(ms)}")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            whole()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in kern) / 1e3 / 2
-    launched = sum(e.count for e in kern) / 2
+    launched, busy_ms, wall_ms, kern = traced(whole, 2)
     top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
     log(f"[where] profiled train tick: {launched:.0f} device kernels, device busy "
         f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
@@ -1114,6 +1311,86 @@ def train_where(train, cfg) -> None:
         "device time: "
         + "; ".join(f"{e.key[:48]} {getattr(e, 'self_device_time_total', 0.0) / 2e3:.3f} ms"
                     for e in top))
+
+
+def traced(fn, n: int):
+    """Trace `n` calls of `fn` with torch.profiler: (device kernels a call,
+    device busy ms a call, profiled wall ms a call, the kernels' profiler
+    events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in kern) / 1e3 / n
+    return sum(e.count for e in kern) / n, busy_ms, wall_ms, kern
+
+
+def ppo_where(run, cfg) -> None:
+    """Host-clock ms of each piece of a PPO iteration at the bench shape,
+    each call synchronised, and a profiler trace of one whole iteration.
+    Pieces that consume a state step a clone (`state_clone` times one)."""
+    from madrona_bots_tpu_torch import rng
+    from madrona_bots_tpu_torch.env import env as env_mod
+    from madrona_bots_tpu_torch.learn import a2c, ppo
+    from madrona_bots_tpu_torch.ops import row_gather_cuda
+
+    it, tstates, base = run["it"], run["tstates"], run["state"]
+    params = [t.params for t in tstates]
+    dev = base.alive.device
+    key = rng.key(11, dev)
+    action, logp, value, _, obs = it.policy_step(params, base, key)
+    end_state, end_key, roll = it.rollout(base.clone(), params, key)
+    adv = it.advantages(end_state, params, end_key, roll)
+    bufs, _ = it.update_buffers(roll, adv, end_key)
+    kslot, fields, _, _ = ppo_gather_inputs(base, cfg.num_species, None)
+    held = [base.clone(), tstates]
+
+    def env_steps():
+        s = base.clone()
+        for _ in range(PPO_T):
+            s = env_mod.step(s, cfg)
+
+    def whole():
+        held[0], held[1], m = it(held[0], held[1], key)
+        a2c.stack_metrics(m).cpu()
+
+    parts = {
+        "state_clone": base.clone,
+        f"env_steps_{PPO_T}": env_steps,
+        f"forwards_sampling_{PPO_T}": lambda: [it.policy_step(params, base, key)
+                                               for _ in range(PPO_T)],
+        f"pack_{PPO_T}": lambda: [it.pack_records(base, obs, action, logp, value)
+                                  for _ in range(PPO_T)],
+        "row_gather_kernel": lambda: row_gather_cuda.compact_fields(kslot, fields),
+        "rollout": lambda: it.rollout(base.clone(), params, key),
+        "bootstrap_gae": lambda: it.advantages(end_state, params, end_key, roll),
+        "gae": lambda: ppo.gae(roll.reward, roll.alive, roll.next_alive, roll.value_full,
+                               roll.value_full[0], it.gamma, it.gae_lambda),
+        "buffers": lambda: it.update_buffers(roll, adv, end_key),
+    }
+    for s in range(cfg.num_species):
+        parts[f"update_species_{s + 1}"] = (
+            lambda s=s: it.update_species(s, tstates[s], bufs[s]))
+    parts["metrics_copy"] = lambda: a2c.stack_metrics(run["metrics"]).cpu()
+    parts["whole_iteration"] = whole
+    ms = {name: host_ms(fn, reps=3) for name, fn in parts.items()}
+    log(f"[where] ppo iteration host ms per call, synchronised: {json.dumps(ms)}")
+    del roll, adv, bufs
+
+    launched, busy_ms, wall_ms, kern = traced(whole, 1)
+    top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
+    log(f"[where] profiled ppo iteration: {launched:.0f} device kernels, device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}; "
+        f"against the unprofiled whole_iteration {ms['whole_iteration']:.3f} ms: "
+        f"{max(0.0, 1 - busy_ms / ms['whole_iteration']):.3f}); top by device time: "
+        + "; ".join(f"{e.key[:48]} {getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms "
+                    f"({e.count})" for e in top))
 
 
 def where_the_time_goes(state, ray_inputs, cfg, actions) -> None:
@@ -1145,17 +1422,7 @@ def where_the_time_goes(state, ray_inputs, cfg, actions) -> None:
     log(f"[where] host ms per call, synchronised: {json.dumps(ms)}")
     del s_k, s_p
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            tick()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in kern) / 1e3 / 2
-    launches = sum(e.count for e in kern) / 2
+    launches, busy_ms, wall_ms, kern = traced(tick, 2)
     top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
     log(f"[where] profiled tick: {launches:.0f} device kernels, device busy "
         f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "

@@ -31,7 +31,7 @@ from madrona_bots_tpu_torch.config import NUM_ACTIONS, EnvConfig
 from madrona_bots_tpu_torch.env import env as env_mod
 from madrona_bots_tpu_torch.env.state import WorldState
 from madrona_bots_tpu_torch.learn.obs import construct_obs, obs_field_cols
-from madrona_bots_tpu_torch.learn.pack import (compact_gather, compact_slots,
+from madrona_bots_tpu_torch.learn.pack import (class_major, compact_gather, compact_slots,
                                                expand_scatter,
                                                kslot_from_class_slots, split3)
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic, compute_loss
@@ -61,11 +61,18 @@ class Adam:
     """`optax.flatten(optax.adam(lr, b1, b2, eps))` on one flat parameter
     vector: the same state leaves (count, mu, nu) and the same formula,
     update = -lr * m_hat / (sqrt(v_hat) + eps), so checkpoints carry over
-    between the packages one to one."""
+    between the packages one to one.
+
+    With `max_grad_norm` it is `optax.flatten(optax.chain(
+    clip_by_global_norm(max_grad_norm), adam(...)))` (the PPO optimizer):
+    the gradient is kept where its norm sqrt(sum(g * g)) is below the limit
+    and is (g / norm) * max_grad_norm otherwise. The clip has no state, so
+    the state leaves stay (count, mu, nu)."""
 
     def __init__(self, lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, max_grad_norm: float | None = None):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.max_grad_norm = max_grad_norm
 
     def init(self, params: torch.Tensor) -> AdamState:
         return AdamState(torch.zeros((), dtype=torch.int32, device=params.device),
@@ -73,6 +80,10 @@ class Adam:
 
     def update(self, grad: torch.Tensor, state: AdamState, params: torch.Tensor):
         """(new params, new state)."""
+        if self.max_grad_norm is not None:
+            norm = torch.sqrt(torch.sum(grad * grad))
+            grad = torch.where(norm < self.max_grad_norm, grad,
+                               (grad / norm) * self.max_grad_norm)
         mu = (1 - self.b1) * grad + self.b1 * state.mu
         nu = (1 - self.b2) * (grad * grad) + self.b2 * state.nu
         count = state.count + 1
@@ -98,6 +109,19 @@ def init_train_states(models: Sequence[ActorCritic], key: torch.Tensor,
     return tuple(states)
 
 
+def policy_forward(model: ActorCritic, flat: torch.Tensor, obs: torch.Tensor,
+                   mem: torch.Tensor, compute_dtype=None):
+    """(logits, value, new memory) in f32 from the flat parameters; with
+    `compute_dtype` the leaves, obs and memory are cast to it first (bf16
+    forwards against f32 master parameters)."""
+    leaves = model.unflatten(flat)
+    if compute_dtype is not None:
+        leaves = [t.to(compute_dtype) for t in leaves]
+        obs, mem = obs.to(compute_dtype), mem.to(compute_dtype)
+    logits, v, h = model(obs, mem, leaves)
+    return logits.to(f32), v.to(f32), h.to(f32)
+
+
 def _species_update(model: ActorCritic, optimizer: Adam, ts: SpeciesTrainState,
                     obs_cur, obs_prev, mem_cur, mem_prev, prev_actions, rewards,
                     mask, key, gamma: float, proper_log_probs: bool,
@@ -110,12 +134,7 @@ def _species_update(model: ActorCritic, optimizer: Adam, ts: SpeciesTrainState,
         loss_mask = mask
 
     def fwd(flat, obs, mem):
-        leaves = model.unflatten(flat)
-        if compute_dtype is not None:
-            leaves = [t.to(compute_dtype) for t in leaves]
-            mem = mem.to(compute_dtype)
-        logits, v, h = model(obs, mem, leaves)
-        return logits.to(f32), v.to(f32), h.to(f32)
+        return policy_forward(model, flat, obs, mem, compute_dtype)
 
     with torch.no_grad():
         logits, v_new, new_mem = fwd(ts.params, obs_cur, mem_cur)
@@ -200,17 +219,9 @@ def compact_learner_rows(state: WorldState, cfg: EnvConfig, rows: int,
     prev action, reward] with the reward as three bf16 planes in bf16.
     Groups are class-outermost (g = s * W + w)."""
     NS = cfg.num_species
-    W, A = state.alive.shape
-    Asub, G = A // NS, NS * W
+    W = state.alive.shape[0]
     m_full, lm_full = class_masks(state, NS)
-
-    def cmaj(x):
-        """[W, A(, k)] -> class-outermost [G, Asub(, k)]."""
-        x4 = x.reshape((W, Asub, NS) + x.shape[2:])
-        return x4.permute((2, 0, 1) + tuple(range(3, x4.dim()))).reshape(
-            (G, Asub) + x.shape[2:])
-
-    slot, valid_g, keep = compact_slots(cmaj(m_full), rows)
+    slot, valid_g, keep = compact_slots(class_major(m_full, NS), rows)
     if compute_dtype == bf16:
         # One launch gathers all seven fields; sensor bytes stay bytes.
         gather = (row_gather_cuda.compact_fields if use_kernels
@@ -229,7 +240,7 @@ def compact_learner_rows(state: WorldState, cfg: EnvConfig, rows: int,
         cols += [state.hidden.to(dt), state.prev_hidden.to(dt), lm_full[..., None].to(dt),
                  torch.argmax(state.action, dim=-1)[..., None].to(dt),
                  state.reward[..., None].to(dt)]
-        grec = compact_gather(cmaj(torch.cat(cols, dim=-1)), slot, valid_g)
+        grec = compact_gather(class_major(torch.cat(cols, dim=-1), NS), slot, valid_g)
         grec4 = grec.reshape(NS, W, rows, grec.shape[-1])
     return grec4, slot, valid_g, keep, m_full
 

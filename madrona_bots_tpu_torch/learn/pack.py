@@ -31,6 +31,15 @@ def split3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return h1, h2, h3
 
 
+def class_major(x: torch.Tensor, NS: int) -> torch.Tensor:
+    """[W, A(, k)] -> class-outermost [G = NS * W, A / NS(, k)]: group s * W
+    + w holds class s of world w, slot order kept."""
+    W, A = x.shape[:2]
+    x4 = x.reshape((W, A // NS, NS) + x.shape[2:])
+    return x4.permute((2, 0, 1) + tuple(range(3, x4.dim()))).reshape(
+        (NS * W, A // NS) + x.shape[2:])
+
+
 def compact_slots(mask: torch.Tensor, rows: int):
     """Per-group rank compaction. mask [G, Asub] bool ->
       slot  [G, rows] i32 : slot index of the r-th set entry (ascending), 0

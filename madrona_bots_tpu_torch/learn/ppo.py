@@ -1,0 +1,465 @@
+"""PPO actor-learner with rollout buffers on the device.
+
+Counterpart of `madrona_bots_tpu/learn/ppo.py`'s per-species loop path. One
+iteration collects `rollout_len` env steps with the current policies, runs
+GAE over them, and takes `update_epochs x num_minibatches` clipped-surrogate
+minibatch updates per species. PyTorch runs it eagerly; the iteration's
+values follow the jitted JAX `ppo_iteration`.
+
+Species-class slot partitioning (SPEC D2b): slot i belongs to species
+(i % NS) + 1, so each species' rows are a strided view of the [W, A] batch
+and its policy forwards run on that view at full width. With
+`learner_slots_per_class = L < A / NS` each step also packs every (world,
+class)'s alive rows into L learner rows (`RolloutC`): in bf16 that is one
+launch of the row-gather kernel (`ops/row_gather_cuda.py`) over four fields,
+in f32 an exact gather of one payload (`learn/pack.py`). Overflow rows are
+left out of the learner batch only, counted in `species_*_dropped_rows`;
+trajectories do not depend on L.
+
+Minibatches keep the JAX schedule: each species' B rows are rolled by a
+key-derived offset (`decorrelate`), minibatch c holds rows i * M + c, and
+epoch e visits minibatch (i + e) % M at step i. The buffers are built once
+per iteration in that minibatch-major order with one gather each.
+
+`compute_dtype=torch.bfloat16` runs the forwards (rollout and update) in
+bf16 against f32 master parameters; GAE, losses, gradients and Adam stay
+f32. The species-stacked update (`--stacked`) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from madrona_bots_tpu_torch import rng
+from madrona_bots_tpu_torch.config import NUM_ACTIONS, EnvConfig
+from madrona_bots_tpu_torch.device import const
+from madrona_bots_tpu_torch.env import env as env_mod
+from madrona_bots_tpu_torch.env.state import WorldState
+from madrona_bots_tpu_torch.learn.a2c import (Adam, SpeciesTrainState, class_masks,
+                                              policy_forward)
+from madrona_bots_tpu_torch.learn.pack import (class_major, compact_gather, compact_slots,
+                                               kslot_from_class_slots, split3)
+from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+from madrona_bots_tpu_torch.ops import row_gather_cuda
+
+f32 = torch.float32
+bf16 = torch.bfloat16
+
+PER_SPECIES_METRICS = ("loss", "pg_loss", "v_loss", "entropy", "count", "reward",
+                       "dropped_rows")
+"""Per-species metrics of an iteration, each as `species_{s}_{name}`, s from 1;
+`env_steps` follows them."""
+
+
+class Rollout(NamedTuple):
+    """[T, W, A, ...] per-step records (no learner slots)."""
+    depth: torch.Tensor        # u8  [T, W, A, S]
+    semantic: torch.Tensor     # i8  [T, W, A, S]
+    health: torch.Tensor       # i32 [T, W, A]
+    pos: torch.Tensor          # f32 [T, W, A, 2]
+    surrounding: torch.Tensor  # f32 [T, W, A, 2]
+    memory: torch.Tensor       # f32 [T, W, A, H] (input memory at step t)
+    species: torch.Tensor      # i32 [T, W, A]
+    action: torch.Tensor       # i8  [T, W, A]
+    logp: torch.Tensor         # f32 [T, W, A]
+    value: torch.Tensor        # f32 [T, W, A]
+    reward: torch.Tensor       # f32 [T, W, A]
+    alive: torch.Tensor        # bool [T, W, A]
+    next_alive: torch.Tensor   # bool [T, W, A]
+
+
+class RolloutC(NamedTuple):
+    """Record-compacted rollout (learner slots set). `rec` holds each
+    step's learner rows, groups class-outermost (g = s * W + w, `rows` rows
+    a group), columns [obs(D), memory(H), action, logp, value] with logp
+    and value as three bf16 planes each in bf16. GAE's inputs stay on the
+    [W, A] slot domain: the advantage recursion chains per slot."""
+    rec: torch.Tensor         # [T, G*rows, C] packed learner rows
+    valid: torch.Tensor       # bool [T, G*rows] (row r < alive count)
+    srcrow: torch.Tensor      # i32 [T, G*rows] source slot in [0, A)
+    dropped: torch.Tensor     # i32 [T, NS] overflow rows beyond the cap
+    value_full: torch.Tensor  # f32 [T, W, A] full-width values (GAE)
+    alive: torch.Tensor       # bool [T, W, A] pre-step
+    reward: torch.Tensor      # f32 [T, W, A]
+    next_alive: torch.Tensor  # bool [T, W, A]
+
+
+def _flat_obs(depth, health, pos, semantic, surrounding, dtype=f32):
+    """The 69-dim obs layout [depth, health, pos, semantic, surrounding]."""
+    return torch.cat([depth.to(dtype), health[..., None].to(dtype), pos.to(dtype),
+                      semantic.to(dtype), surrounding.to(dtype)], dim=-1)
+
+
+def make_ppo_optimizer(lr: float = 3e-4, max_grad_norm: float = 0.5) -> Adam:
+    """`optax.flatten(chain(clip_by_global_norm(max_grad_norm), adam(lr,
+    eps=1e-5)))` on the flat parameter vector."""
+    return Adam(lr, eps=1e-5, max_grad_norm=max_grad_norm)
+
+
+def gae(reward, alive, next_alive, value, last_value, gamma: float,
+        gae_lambda: float) -> torch.Tensor:
+    """Advantages [T, ...] by the reverse GAE recursion on the slot domain:
+    an agent's death (alive[t] & ~next_alive[t]) ends its trajectory with a
+    bootstrap of 0; the env never resets (quirk Q7)."""
+    adv = torch.empty_like(value)
+    g = torch.zeros_like(last_value)
+    next_value = last_value
+    for t in reversed(range(value.shape[0])):
+        alive_next = next_alive[t] & alive[t]
+        nv = torch.where(alive_next, next_value, 0.0)
+        delta = reward[t] + gamma * nv - value[t]
+        g = delta + gamma * gae_lambda * torch.where(alive_next, g, 0.0)
+        adv[t] = g
+        next_value = value[t]
+    return adv
+
+
+def record_fields(state: WorldState, action: torch.Tensor, logp: torch.Tensor,
+                  value: torch.Tensor):
+    """The four [W, A, d] sources the bf16 record pack gathers in one
+    launch: depth bytes, semantic bytes, 12 bf16 scalar columns [health,
+    pos, surrounding, action, logp as three bf16 planes, value as three],
+    and the input memory in bf16."""
+    scal = torch.cat([state.health[..., None].to(bf16), state.pos.to(bf16),
+                      state.surrounding.to(bf16), action[..., None].to(bf16),
+                      *(p[..., None] for p in split3(logp)),
+                      *(p[..., None] for p in split3(value))], dim=-1)
+    return [state.sensor_depth, state.sensor_semantic, scal, state.hidden.to(bf16)]
+
+
+class PPOTrainer:
+    """The PPO iteration and its stages. Call it (or `ppo_iteration`) as
+    (state, train_states, key) -> (state, train_states, metrics); it
+    consumes `state`. `use_kernels=False` runs every kernel's plain version
+    (on any device); on CUDA tensors the default launches the kernels."""
+
+    def __init__(self, models: Sequence[ActorCritic], cfg: EnvConfig, optimizer: Adam,
+                 rollout_len: int, num_minibatches: int, update_epochs: int,
+                 clip_eps: float, gamma: float, gae_lambda: float, vf_coef: float,
+                 ent_coef: float, use_kernels: bool, compute_dtype,
+                 learner_slots_per_class, decorrelate: bool):
+        self.models, self.cfg, self.optimizer = list(models), cfg, optimizer
+        self.NS = cfg.num_species
+        if len(self.models) != self.NS:
+            raise ValueError(f"{len(self.models)} models for {self.NS} species")
+        if compute_dtype not in (None, bf16):
+            raise ValueError(f"compute_dtype must be None or bfloat16, got {compute_dtype}")
+        self.T, self.M, self.E = rollout_len, num_minibatches, update_epochs
+        self.clip_eps, self.gamma, self.gae_lambda = clip_eps, gamma, gae_lambda
+        self.vf_coef, self.ent_coef = vf_coef, ent_coef
+        self.use_kernels, self.cd, self.decorrelate = use_kernels, compute_dtype, decorrelate
+        self.Asub = cfg.max_agents // self.NS
+        L = learner_slots_per_class
+        self.rec_mode = L is not None and L < self.Asub
+        self.rows = L if self.rec_mode else self.Asub
+        self.obs_dtype = f32 if compute_dtype is None else compute_dtype
+        B = self.T * cfg.num_worlds * self.rows
+        if B % num_minibatches:
+            raise ValueError(f"{B} learner rows a species do not split into "
+                             f"{num_minibatches} minibatches")
+
+    def __call__(self, state, train_states, key):
+        return self.ppo_iteration(state, train_states, key)
+
+    # ---- rollout ----
+
+    def policy_step(self, params_list, state: WorldState, key, sample: bool = True):
+        """Every species' forward on its strided class view at full width,
+        actions sampled with `categorical(fold_in(key, s), logits)`. Returns
+        [W, A]-shaped (action int64, logp, value, new memory [W, A, H]) masked
+        to alive rows of the right class, and the [W, A, D] obs the forwards
+        read. With sample=False only the values are computed (the rest None)."""
+        NS, Asub = self.NS, self.Asub
+        W, A = state.alive.shape
+        Nc, H = W * Asub, state.hidden.shape[-1]
+        obs = _flat_obs(state.sensor_depth, state.health, state.pos,
+                        state.sensor_semantic, state.surrounding, self.obs_dtype)
+        obs4 = obs.reshape(W, Asub, NS, obs.shape[-1])
+        mem4 = state.hidden.reshape(W, Asub, NS, H)
+        alive3 = state.alive.reshape(W, Asub, NS)
+        sp3 = state.species.reshape(W, Asub, NS)
+        a_c, lp_c, v_c, h_c = [], [], [], []
+        with torch.no_grad():
+            for s in range(NS):
+                mb = (alive3[:, :, s] & (sp3[:, :, s] == s + 1)).reshape(Nc)
+                logits, v, h = policy_forward(
+                    self.models[s], params_list[s], obs4[:, :, s].reshape(Nc, -1),
+                    mem4[:, :, s].reshape(Nc, H), self.cd)
+                v_c.append(torch.where(mb, v, 0.0).reshape(W, Asub))
+                if not sample:
+                    continue
+                a = rng.categorical(rng.fold_in(key, s), logits)
+                lp = torch.gather(F.log_softmax(logits, dim=-1), 1, a[:, None])[:, 0]
+                a_c.append(torch.where(mb, a, 0).reshape(W, Asub))
+                lp_c.append(torch.where(mb, lp, 0.0).reshape(W, Asub))
+                h_c.append((h * mb[:, None].to(h.dtype)).reshape(W, Asub, H))
+        value = torch.stack(v_c, dim=2).reshape(W, A)
+        if not sample:
+            return None, None, value, None, obs
+        return (torch.stack(a_c, dim=2).reshape(W, A),
+                torch.stack(lp_c, dim=2).reshape(W, A), value,
+                torch.stack(h_c, dim=2).reshape(W, A, H), obs)
+
+    def pack_records(self, state: WorldState, obs, action, logp, value):
+        """One compaction of every (world, class)'s alive rows into `rows`
+        learner rows: (rec [G*rows, C], valid [G*rows], srcrow [G*rows] =
+        slot * NS + class, dropped [NS] int32). In bf16 one row-gather
+        launch over `record_fields`; in f32 a gather of the [G, Asub, C]
+        payload. Both move the bits the forwards read."""
+        NS, Asub, rows = self.NS, self.Asub, self.rows
+        W = state.alive.shape[0]
+        G = NS * W
+        m = class_major(class_masks(state, NS)[0], NS)                  # [G, Asub]
+        slot, valid, keep = compact_slots(m, rows)
+        if self.cd == bf16:
+            gather = (row_gather_cuda.compact_fields if self.use_kernels
+                      else row_gather_cuda.compact_fields_reference)
+            kslot = kslot_from_class_slots(slot, valid, W, NS)
+            depth, semantic, scal, hidden = gather(
+                kslot, record_fields(state, action, logp, value))
+            # [W, K, .] fields -> [G * rows, C] in the column order
+            # [obs(D), memory(H), action, logp x3, value x3].
+            rec = torch.cat([depth, scal[..., 0:3], semantic, scal[..., 3:5], hidden,
+                             scal[..., 5:]], dim=-1)
+            rec = rec.reshape(W, NS, rows, -1).permute(1, 0, 2, 3).reshape(G * rows, -1)
+        else:
+            payload = torch.cat([obs, state.hidden, action[..., None].to(f32),
+                                 logp[..., None], value[..., None]], dim=-1)
+            rec = compact_gather(class_major(payload, NS), slot, valid).reshape(G * rows, -1)
+        cls = torch.arange(G, dtype=torch.int32, device=m.device) // W
+        srcrow = slot * NS + cls[:, None]
+        dropped = (m.reshape(NS, W * Asub).sum(dim=1)
+                   - keep.reshape(NS, W * Asub).sum(dim=1)).to(torch.int32)
+        return rec, valid.reshape(G * rows), srcrow.reshape(G * rows), dropped
+
+    def rollout(self, state: WorldState, params_list, key):
+        """`rollout_len` env steps with the current policies: (state, the key
+        left after the T splits, Rollout or RolloutC). Consumes `state`."""
+        T, NS, rows = self.T, self.NS, self.rows
+        W, A = state.alive.shape
+        dev = state.alive.device
+        H, S = state.hidden.shape[-1], state.sensor_depth.shape[-1]
+
+        def buf(*shape, dtype=f32):
+            return torch.empty((T,) + shape, dtype=dtype, device=dev)
+
+        slot_domain = dict(alive=buf(W, A, dtype=torch.bool), reward=buf(W, A),
+                           next_alive=buf(W, A, dtype=torch.bool))
+        if self.rec_mode:
+            C = self.cfg.obs_dim + H + (6 if self.cd == bf16 else 2) + 1
+            recs = dict(rec=buf(NS * W * rows, C, dtype=self.obs_dtype),
+                        valid=buf(NS * W * rows, dtype=torch.bool),
+                        srcrow=buf(NS * W * rows, dtype=torch.int32),
+                        dropped=buf(NS, dtype=torch.int32), value_full=buf(W, A))
+        else:
+            recs = dict(depth=buf(W, A, S, dtype=torch.uint8),
+                        semantic=buf(W, A, S, dtype=torch.int8),
+                        health=buf(W, A, dtype=torch.int32), pos=buf(W, A, 2),
+                        surrounding=buf(W, A, 2), memory=buf(W, A, H),
+                        species=buf(W, A, dtype=torch.int32),
+                        action=buf(W, A, dtype=torch.int8), logp=buf(W, A), value=buf(W, A))
+        recs.update(slot_domain)
+        for t in range(T):
+            key, k_act = rng.split(key, 2)
+            action, logp, value, new_hidden, obs = self.policy_step(params_list, state, k_act)
+            recs["alive"][t].copy_(state.alive)
+            if self.rec_mode:
+                for name, x in zip(("rec", "valid", "srcrow", "dropped"),
+                                   self.pack_records(state, obs, action, logp, value)):
+                    recs[name][t].copy_(x)
+                recs["value_full"][t].copy_(value)
+            else:
+                for name, x in (("depth", state.sensor_depth), ("semantic", state.sensor_semantic),
+                                ("health", state.health), ("pos", state.pos),
+                                ("surrounding", state.surrounding), ("memory", state.hidden),
+                                ("species", state.species), ("action", action),
+                                ("logp", logp), ("value", value)):
+                    recs[name][t].copy_(x)
+            onehot = F.one_hot(action, NUM_ACTIONS).to(torch.int32) * state.alive[..., None]
+            state = env_mod.step(state.replace(action=onehot, hidden=new_hidden), self.cfg,
+                                 self.use_kernels)
+            recs["reward"][t].copy_(state.reward)
+            recs["next_alive"][t].copy_(state.alive)
+        return state, key, (RolloutC if self.rec_mode else Rollout)(**recs)
+
+    def advantages(self, state: WorldState, params_list, key, roll) -> torch.Tensor:
+        """GAE advantages [T, W, A], bootstrapped from the current policy's
+        values at the state after the rollout. (JAX draws these values with
+        `fold_in(key, 999)`; values do not depend on the key.)"""
+        _, _, last_value, _, _ = self.policy_step(params_list, state, None, sample=False)
+        value_t = roll.value_full if self.rec_mode else roll.value
+        return gae(roll.reward, roll.alive, roll.next_alive, value_t, last_value,
+                   self.gamma, self.gae_lambda)
+
+    # ---- update ----
+
+    def minibatch_order(self, key, B: int, dev) -> torch.Tensor:
+        """[M * mb] row indices: the rows rolled by `randint(fold_in(key,
+        777), (), 0, B)` (0 without decorrelate), minibatch c = rolled rows
+        i * M + c, minibatch-major."""
+        M = self.M
+        mb = B // M
+        if self.decorrelate:
+            off = rng.randint(rng.fold_in(key, 777), (), 0, B).to(torch.int64)
+        else:
+            off = torch.zeros((), dtype=torch.int64, device=dev)
+        c = torch.arange(M, device=dev)[:, None]
+        i = torch.arange(mb, device=dev)[None, :]
+        return torch.remainder(i * M + c - off, B).reshape(M * mb)
+
+    def update_buffers(self, roll, advantages, key):
+        """Per species, (om [M, mb, D + H], action i32, old logp, advantage,
+        return, old value, mask) in minibatch-major order, and its dropped
+        rows [NS]. Advantages are gathered at the recorded source slots;
+        returns = advantage + recorded value."""
+        T, NS, rows, Asub = self.T, self.NS, self.rows, self.Asub
+        W, A = roll.alive.shape[1:]
+        D = self.cfg.obs_dim
+        B = T * W * rows
+        dev = advantages.device
+        order = self.minibatch_order(key, B, dev)
+
+        def mbm(x):
+            return x.index_select(0, order).reshape((self.M, B // self.M) + x.shape[1:])
+
+        bufs = []
+        if self.rec_mode:
+            K, C = NS * rows, roll.rec.shape[-1]
+            H = C - D - 1 - (2 if self.cd is None else 6)
+            srcK = roll.srcrow.reshape(T, NS, W, rows).permute(0, 2, 1, 3).reshape(T, W, K)
+            adv5 = torch.gather(advantages, 2, srcK.long()).reshape(T, W, NS, rows)
+            rec5 = roll.rec.reshape(T, NS, W, rows, C)
+            valid5 = roll.valid.reshape(T, NS, W, rows)
+            c0 = D + H + 1                                        # scalar columns
+            for s in range(NS):
+                r = rec5[:, s]
+                if self.cd is None:
+                    lp, vv = r[..., c0].reshape(B), r[..., c0 + 1].reshape(B)
+                else:
+                    lp = sum(r[..., c0 + i].to(f32) for i in range(3)).reshape(B)
+                    vv = sum(r[..., c0 + 3 + i].to(f32) for i in range(3)).reshape(B)
+                ad = adv5[:, :, s].reshape(B)
+                bufs.append(tuple(mbm(x) for x in (
+                    r[..., 0:D + H].reshape(B, D + H), r[..., D + H].to(torch.int32).reshape(B),
+                    lp, ad, ad + vv, vv, valid5[:, s].reshape(B))))
+            dropped = roll.dropped.sum(dim=0)
+        else:
+            returns = advantages + roll.value
+
+            def fl(x, s):
+                x4 = x.reshape((T, W, Asub, NS) + x.shape[3:])
+                return x4[:, :, :, s].reshape((B,) + x.shape[3:])
+
+            for s in range(NS):
+                obs = _flat_obs(fl(roll.depth, s), fl(roll.health, s), fl(roll.pos, s),
+                                fl(roll.semantic, s), fl(roll.surrounding, s), self.obs_dtype)
+                om = torch.cat([obs, fl(roll.memory, s).to(obs.dtype)], dim=-1)
+                mask = fl(roll.alive, s) & (fl(roll.species, s) == s + 1)
+                bufs.append(tuple(mbm(x) for x in (
+                    om, fl(roll.action, s).to(torch.int32), fl(roll.logp, s),
+                    fl(advantages, s), fl(returns, s), fl(roll.value, s), mask)))
+            dropped = torch.zeros(NS, dtype=torch.int32, device=dev)
+        return bufs, dropped
+
+    def loss(self, s: int, flat: torch.Tensor, picked):
+        """(loss, pg_loss, v_loss, entropy) of one minibatch, each summed
+        over its valid rows and divided by max(their count, 1)."""
+        om, a, lp_old, adv, ret, vold, msk = picked
+        D, eps = self.cfg.obs_dim, self.clip_eps
+        w = msk.to(f32)
+        denom = torch.clamp(w.sum(), min=1.0)
+        mu = torch.sum(adv * w) / denom
+        var = torch.sum((adv - mu) ** 2 * w) / denom
+        adv_n = (adv - mu) * torch.rsqrt(var + 1e-8)
+        logits, v, _ = policy_forward(self.models[s], flat, om[:, :D], om[:, D:], self.cd)
+        lsm = F.log_softmax(logits, dim=-1)
+        logp = torch.gather(lsm, 1, a.long()[:, None])[:, 0]
+        ratio = torch.exp(logp - lp_old)
+        pg = -torch.minimum(ratio * adv_n, torch.clamp(ratio, 1 - eps, 1 + eps) * adv_n)
+        v_clip = vold + torch.clamp(v - vold, -eps, eps)
+        v_loss = 0.5 * torch.maximum((v - ret) ** 2, (v_clip - ret) ** 2)
+        probs = F.softmax(logits, dim=-1)
+        ent = -torch.sum(probs * torch.log(torch.clamp(probs, min=1e-12)), dim=-1)
+        pg_s, vl_s, ent_s = torch.sum(pg * w), torch.sum(v_loss * w), torch.sum(ent * w)
+        loss = (pg_s + self.vf_coef * vl_s - self.ent_coef * ent_s) / denom
+        return loss, pg_s / denom, vl_s / denom, ent_s / denom
+
+    def update_species(self, s: int, ts: SpeciesTrainState, bufs):
+        """Species s's `update_epochs x num_minibatches` Adam steps: (new
+        train state, [E * M, 4] losses)."""
+        params, opt = ts
+        losses = []
+        for e in range(self.E):
+            for i in range(self.M):
+                cls = (i + e) % self.M if self.decorrelate else i
+                flat = params.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    out = self.loss(s, flat, tuple(x[cls] for x in bufs))
+                    (grad,) = torch.autograd.grad(out[0], flat)
+                params, opt = self.optimizer.update(grad, opt, params)
+                losses.append(torch.stack([x.detach() for x in out]))
+        return SpeciesTrainState(params, opt), torch.stack(losses)
+
+    def population(self, roll):
+        """Per species, over the rollout's steps: ([NS] alive rows, [NS]
+        reward summed over them), on the full alive set."""
+        T, W, A = roll.alive.shape
+        NS, Asub = self.NS, self.Asub
+        alive4 = roll.alive.reshape(T, W, Asub, NS)
+        if not self.rec_mode:
+            # Uncompacted records keep the species field; compacted ones
+            # rely on SPEC D2b (an alive slot carries its class's species).
+            spec = torch.arange(1, NS + 1, dtype=roll.species.dtype, device=roll.alive.device)
+            alive4 = alive4 & (roll.species.reshape(T, W, Asub, NS) == spec)
+        reward = torch.sum(roll.reward.reshape(T, W, Asub, NS) * alive4, dim=(0, 1, 2))
+        return alive4.sum(dim=(0, 1, 2)), reward
+
+    def ppo_iteration(self, state: WorldState, train_states, key):
+        params_list = [ts.params for ts in train_states]
+        state, key, roll = self.rollout(state, params_list, key)
+        advantages = self.advantages(state, params_list, key, roll)
+        sp_bufs, dropped = self.update_buffers(roll, advantages, key)
+        count, reward = self.population(roll)
+        T, W = roll.alive.shape[:2]
+        NS = self.NS
+        del roll, advantages                      # the buffers hold what the update needs
+        new_ts, metrics = [], {}
+        for s in range(NS):
+            ts, losses = self.update_species(s, train_states[s], sp_bufs[s])
+            sp_bufs[s] = None                     # free the species' buffers
+            new_ts.append(ts)
+            mean = losses.mean(dim=0)
+            values = (mean[0], mean[1], mean[2], mean[3], count[s] / T, reward[s] / T,
+                      dropped[s])
+            for name, v in zip(PER_SPECIES_METRICS, values):
+                metrics[f"species_{s + 1}_{name}"] = v
+        metrics["env_steps"] = const(float(T * W), f32, state.alive.device)
+        return state, tuple(new_ts), metrics
+
+
+def make_ppo_trainer(models: Sequence[ActorCritic], cfg: EnvConfig,
+                     rollout_len: int = 16, num_minibatches: int = 8,
+                     update_epochs: int = 1, clip_eps: float = 0.2,
+                     gamma: float = 0.99, gae_lambda: float = 0.95,
+                     vf_coef: float = 0.5, ent_coef: float = 0.01,
+                     lr: float = 3e-4, max_grad_norm: float = 0.5,
+                     use_kernels: bool = True, optimizer: Adam | None = None,
+                     compute_dtype=None, learner_slots_per_class=None,
+                     decorrelate: bool = True, stacked: bool = False):
+    """Returns (ppo_iteration, optimizer), as the JAX `make_ppo_trainer`:
+    ppo_iteration(state, train_states, key) -> (state, train_states,
+    metrics) collects `rollout_len` env steps and takes `update_epochs x
+    num_minibatches` clipped-surrogate updates per species. The returned
+    `PPOTrainer` also exposes the stages (rollout, advantages, buffers,
+    updates). `use_kernels` stands for the JAX `use_pallas`."""
+    if stacked:
+        raise NotImplementedError("the species-stacked PPO update is not ported yet")
+    if optimizer is None:
+        optimizer = make_ppo_optimizer(lr, max_grad_norm)
+    trainer = PPOTrainer(models, cfg, optimizer, rollout_len, num_minibatches,
+                         update_epochs, clip_eps, gamma, gae_lambda, vf_coef, ent_coef,
+                         use_kernels, compute_dtype, learner_slots_per_class, decorrelate)
+    return trainer, optimizer

@@ -1,4 +1,4 @@
-"""Training CLI: per-species A2C on the card.
+"""Training CLI: per-species A2C or PPO on the card.
 
     python -m madrona_bots_tpu_torch.learn.training_loop --num_worlds 8 \\
         --num_epochs 5 --create_universe --universe_id demo \\
@@ -6,14 +6,16 @@
 
 Counterpart of `madrona_bots_tpu/learn/training_loop.py` with the same flags
 and flow: per-species ActorCritic creation or restore under a "universe"
-checkpoint directory, one train tick per epoch, reference metric names,
-latest and best-metric checkpoints, and the FPS report. `--create_universe
+checkpoint directory, one train tick (`--algo a2c`, the default) or one PPO
+iteration of `--rollout_len` env steps (`--algo ppo`) per epoch, the JAX
+package's metric names, latest and best-metric checkpoints (PPO has no
+best metric, as in the JAX CLI), and the FPS report. `--create_universe
 --seed s` creates the same universe as the JAX package's CLI, and either
 package restores the other's. Runs on CUDA unless `--device cpu` is given.
-The tick's metrics leave the card as one stacked tensor, one copy per epoch.
+An epoch's metrics leave the card as one stacked tensor, one copy per epoch.
 
-Not ported yet, and refused with an error: `--algo ppo`, `--stacked`,
-`--use_mesh` and `--ticks_per_block` > 1.
+Not ported yet, and refused with an error: `--stacked`, `--use_mesh` and
+`--ticks_per_block` > 1.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from madrona_bots_tpu_torch.learn.a2c import (SpeciesTrainState, make_optimizer,
                                               make_train_tick, stack_metrics)
 from madrona_bots_tpu_torch.learn.ckpt import CheckpointManager
 from madrona_bots_tpu_torch.learn.metrics import MetricsLogger
+from madrona_bots_tpu_torch.learn.ppo import make_ppo_optimizer, make_ppo_trainer
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
 from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
 
@@ -45,8 +48,7 @@ def construct_run_name(args) -> str:
 
 
 def _refuse_unported(args) -> None:
-    for on, what in ((args.algo == "ppo", "--algo ppo"), (args.stacked, "--stacked"),
-                     (args.use_mesh, "--use_mesh"),
+    for on, what in ((args.stacked, "--stacked"), (args.use_mesh, "--use_mesh"),
                      (args.ticks_per_block > 1, "--ticks_per_block > 1")):
         if on:
             raise NotImplementedError(f"{what} is not ported to madrona_bots_tpu_torch "
@@ -73,7 +75,9 @@ def train(args):
     ckpt = CheckpointManager(base_ckpt_dir, restore=True)
     gen = SpeciesNetGenerator(args.obs_dim, args.action_dim, args.hidden_dim,
                               args.memory_dim, seed=args.seed)
-    optimizer = make_optimizer(args.lr)
+    # The optimizer defines the checkpoint's Adam state; both have the leaves
+    # (count, mu, nu).
+    optimizer = make_ppo_optimizer(args.lr) if args.algo == "ppo" else make_optimizer(args.lr)
     models, tstates, start_epochs = [], [], []
     init_key = rng.key(args.seed, dev)
     for sp in range(1, args.num_species + 1):
@@ -96,11 +100,17 @@ def train(args):
         tstates.append(SpeciesTrainState(params, opt_state))
     tstates = tuple(tstates)
     compute_dtype = {"f32": None, "bf16": torch.bfloat16}[args.compute_dtype]
-    tick, _ = make_train_tick(models, cfg, lr=args.lr, gamma=args.gamma,
-                              proper_log_probs=args.proper_log_probs,
-                              quirk_compat=args.quirk_compat,
-                              compute_dtype=compute_dtype,
-                              learner_slots_per_class=args.learner_slots)
+    if args.algo == "ppo":
+        tick, _ = make_ppo_trainer(models, cfg, rollout_len=args.rollout_len,
+                                   gamma=args.gamma, lr=args.lr, optimizer=optimizer,
+                                   compute_dtype=compute_dtype,
+                                   learner_slots_per_class=args.learner_slots)
+    else:
+        tick, _ = make_train_tick(models, cfg, lr=args.lr, gamma=args.gamma,
+                                  proper_log_probs=args.proper_log_probs,
+                                  quirk_compat=args.quirk_compat,
+                                  compute_dtype=compute_dtype,
+                                  learner_slots_per_class=args.learner_slots)
     state = init_state(cfg, args.seed, dev)
     key = rng.key(args.seed + 1, dev)
 
@@ -120,7 +130,9 @@ def train(args):
                 ckpt.save(models[sp], ts.params, ts.opt_state, f"species_{sp+1}",
                           epoch, metric_name="latest", verbose=args.verbose)
             for metric in BEST_METRICS:
-                v = host_metrics[f"species_{sp+1}_{metric}"]
+                v = host_metrics.get(f"species_{sp+1}_{metric}")
+                if v is None:                      # PPO has its own metric names
+                    continue
                 if v < best[metric][sp]:
                     best[metric][sp] = v
                     ckpt.save(models[sp], ts.params, ts.opt_state, f"species_{sp+1}",
@@ -185,9 +197,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--compute_dtype', choices=['f32', 'bf16'],
                         default='f32', help='forward-pass precision')
     parser.add_argument('--algo', choices=['a2c', 'ppo'], default='a2c',
-                        help='a2c = reference-parity TD(0); ppo is not ported yet')
+                        help='a2c = reference-parity TD(0); ppo = PPO iterations '
+                             '(an epoch is one iteration of --rollout_len env steps)')
     parser.add_argument('--rollout_len', type=int, default=16,
-                        help='PPO: env steps per iteration (not ported yet)')
+                        help='PPO: env steps per iteration')
     parser.add_argument('--learner_slots', type=int, default=None,
                         help='cap learner rows per (world, species) via '
                              'on-device compaction; None trains on all '
