@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's world rollout, A2C training and PPO on one CUDA
-card and check them.
+"""Drive the PyTorch port's world rollout, A2C training and PPO (per species
+and species-stacked, tick by tick and in blocks) on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -37,12 +38,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      per class; 1 warm-up and 4 timed iterations, 16 launches of each
      kernel an iteration, the dropped-row share; one iteration on the
      kernel and on the plain path from clones agree;
+  6c. the species-stacked train tick (`--stacked`) at the train shape from
+     the loop's state and parameters, stacked: 8 counted ticks (one launch
+     of each kernel a tick), 4 ticks on the kernel and the plain path agree
+     (parameters equal), stacked and loop ticks timed in alternation, and
+     the share of actions a stacked and a loop tick from one state draw
+     differently (printed, not checked);
+  6d. the stacked PPO trainer at the PPO shape: 16 launches of each kernel
+     an iteration, one iteration on the kernel and the plain path agree,
+     stacked and loop iterations in alternation, its peak device memory;
+  6e. block mode: the CLI's `make_block` with K = 16 ticks (bench.py's train
+     BENCH_SCAN), best tracking on, loop and stacked: 16 launches of each
+     kernel a block, ms per tick against the per-tick CLI loop, in
+     alternation;
   7. reference checks on small inputs: the kernel path on the card against
      the plain path on the CPU (world steps, an f32 train tick and an f32
-     PPO iteration), and the 50-step digests of tests/golden_trajectory.json
-     (recorded from the JAX package);
+     PPO iteration, each also stacked), stacked against loop on the card
+     (the same integer trajectory), and the 50-step digests of
+     tests/golden_trajectory.json (recorded from the JAX package);
   8. the training CLI as a subprocess at --num_worlds 8, A2C and PPO
-     (--rollout_len 4): create a universe, then restore it;
+     (--rollout_len 4), each also --stacked (A2C with --ticks_per_block 4):
+     create a universe, then restore it;
   9. each kernel's time per launch (the raycast also at the saturated
      state; the systems step on clones of the stepped state, made outside
      the timed window), its plain version's time, its bound, its share of
@@ -52,10 +68,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      time, with the card's clocks, temperatures and clock-event reasons
      sampled before and after; where a rollout tick's, a train tick's and a
      PPO iteration's time goes, and a profiled tick's (iteration's) kernel
-     count and idle share.
+     count and idle share; then a profiled stacked tick and stacked PPO
+     iteration.
 
 Prints a `kernels` JSON line (each row's `launches` from its main path's
-run, `ppo_launches` in a PPO iteration at the bench shape), the card's
+run, `ppo_launches` in a PPO iteration at the bench shape,
+`stacked_launches` in a stacked tick, `stacked_ppo_launches` in a stacked
+PPO iteration), the card's
 name and power limit, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the package beside it. Timings use CUDA events; a
 kernel's time (`ms`) is the median of 5 batches of launches back to back,
@@ -87,6 +106,9 @@ HIDDEN, ROWS = 128, 10         # bench.py's A2C shape: hidden 128, 10 slots
 TRAIN_WARM, TRAIN_TICKS = 8, 32
 PPO_T, PPO_M, PPO_SLOTS = 16, 8, 8   # bench.py's PPO: rollout 16, 1 x 8, 8 slots
 PPO_ITERS = 4
+STACKED_TICKS, STACKED_ROUNDS = 8, 3   # stacked ticks counted; loop / stacked rounds
+STACKED_PPO_ROUNDS = 2
+BLOCK, BLOCK_ROUNDS = 16, 2      # bench.py's train BENCH_SCAN: 16 ticks a block
 LR = 3e-4
 DEVICE = "cuda"
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -303,6 +325,11 @@ def main() -> int:
     # ---- 6b. PPO at the bench shape ----
     ppo_run = ppo_phase(cfg, dev)
 
+    # ---- 6c. the species-stacked tick and PPO iteration; block mode ----
+    strain = stacked_train_phase(cfg, dev, train)
+    sppo = stacked_ppo_phase(cfg, dev, ppo_run)
+    block_phase(cfg, train, strain)
+
     # ---- 7. reference checks on small inputs ----
     small = EnvConfig(num_worlds=4, init_agents=32, max_agents=64)
     rng = np.random.default_rng(11)
@@ -325,10 +352,13 @@ def main() -> int:
     log(f"[reference] tests/golden_trajectory.json: {golden_ok} steps match")
     reference_train_tick(dev)
     reference_ppo(dev)
+    reference_stacked(dev)
 
     # ---- 8. the training CLI ----
     cli_phase()
     cli_phase(["--algo", "ppo", "--rollout_len", "4"], "ppo")
+    cli_phase(["--stacked", "--ticks_per_block", "4"])
+    cli_phase(["--algo", "ppo", "--stacked", "--rollout_len", "4"])
 
     # ---- 9. kernel times and bounds ----
     log(f"[clocks] before the kernel times: {smi_sample()}")
@@ -366,8 +396,10 @@ def main() -> int:
     kernel_of = {"systems": "systems", "raycast": "raycast", "raycast_saturated": "raycast",
                  "row_gather": "row_gather", "row_gather_ppo": "row_gather"}
     for k in kernels:
-        k["ppo_launches"] = (ppo_run["per_iteration"][kernel_of[k["name"]]]
-                             if k["name"] in kernel_of else 0)
+        for name, per in (("ppo_launches", ppo_run["per_iteration"]),
+                          ("stacked_launches", strain["per_tick"]),
+                          ("stacked_ppo_launches", sppo["per_iteration"])):
+            k[name] = per[kernel_of[k["name"]]] if k["name"] in kernel_of else 0
         k["share"] = k["bound_ms"] / k["ms"]
         k.update(usage.get(os.path.basename(k["source"]),
                            {"registers": None, "spill_bytes": None}))
@@ -378,7 +410,8 @@ def main() -> int:
         dev_ms = "none traced" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         log(f"[time] {k['name']}: {k['ms']:.4f} ms/launch (device {dev_ms}, host "
             f"{k['host_ms']:.4f} ms a call; launches {k['launches']}, {k['ppo_launches']} a PPO "
-            f"iteration), plain {k['plain_ms']:.3f} ms, "
+            f"iteration, {k['stacked_launches']} a stacked tick, {k['stacked_ppo_launches']} a "
+            f"stacked PPO iteration), plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}, share {k['share']:.3f}){lib}; "
             f"{k['registers']} registers, {k['spill_bytes']} spill bytes")
     log(f"[clocks] after the kernel times: {smi_sample()}")
@@ -387,6 +420,7 @@ def main() -> int:
     where_the_time_goes(state, ray_inputs, cfg, one_hot_actions)
     train_where(train, cfg)
     ppo_where(ppo_run, cfg)
+    stacked_where(strain, sppo)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -906,12 +940,6 @@ def row_gather_row(name, kslot, fields, err, launches):
                            "row_gather_kernel")}
 
 
-def clone_train_states(tstates):
-    from madrona_bots_tpu_torch.learn.a2c import AdamState, SpeciesTrainState
-    return tuple(SpeciesTrainState(t.params.clone(), AdamState(*(x.clone() for x in t.opt_state)))
-                 for t in tstates)
-
-
 def train_phase(cfg, dev) -> dict:
     """The CLI's train tick at the bench shape: bf16 forwards, 10 learner
     rows per class. 8 warm-up and 32 timed ticks (CUDA events), each ending
@@ -923,7 +951,6 @@ def train_phase(cfg, dev) -> dict:
     from madrona_bots_tpu_torch.learn import a2c
     from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
     from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
-    from madrona_bots_tpu_torch.ops import raycast_cuda, row_gather_cuda, step_cuda
 
     gen = SpeciesNetGenerator(cfg.obs_dim, NUM_ACTIONS, HIDDEN, cfg.hidden_state_dim, seed=0)
     models = [ActorCritic.from_generator(gen, device=dev) for _ in range(cfg.num_species)]
@@ -946,7 +973,7 @@ def train_phase(cfg, dev) -> dict:
     state, tstates, key, m = run(TRAIN_WARM, state, tstates, key, [])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    step_cuda.launches = raycast_cuda.launches = row_gather_cuda.launches = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     host_rows = []
     host0 = time.perf_counter()
@@ -955,8 +982,7 @@ def train_phase(cfg, dev) -> dict:
     end.record()
     torch.cuda.synchronize()
     host_ms_tick = (time.perf_counter() - host0) * 1e3 / TRAIN_TICKS
-    launches = {"systems": step_cuda.launches, "raycast": raycast_cuda.launches,
-                "row_gather": row_gather_cuda.launches}
+    launches = read_launches()
     ms = start.elapsed_time(end) / TRAIN_TICKS
     log(f"[train] {TRAIN_TICKS} ticks at {cfg.num_worlds}x{cfg.max_agents}, hidden {HIDDEN}, "
         f"bf16, {ROWS} learner rows per class (warm-up {TRAIN_WARM} ticks {warm_s:.1f} s): "
@@ -982,7 +1008,8 @@ def train_phase(cfg, dev) -> dict:
 
     tick_plain, _ = a2c.make_train_tick(models, cfg, use_kernels=False, **kw)
     ks, ps = state.clone(), state.clone()
-    kts, pts = clone_train_states(tstates), clone_train_states(tstates)
+    kts = tuple(clone_train_state(t) for t in tstates)
+    pts = tuple(clone_train_state(t) for t in tstates)
     for t in range(4):
         sub = rng.fold_in(key, 1000 + t)
         ks, kts, _ = tick(ks, kts, sub)
@@ -1081,7 +1108,6 @@ def ppo_phase(cfg, dev) -> dict:
     from madrona_bots_tpu_torch.learn import a2c, ppo
     from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
     from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
-    from madrona_bots_tpu_torch.ops import raycast_cuda, row_gather_cuda, step_cuda
 
     NS = cfg.num_species
     gen = SpeciesNetGenerator(cfg.obs_dim, NUM_ACTIONS, HIDDEN, cfg.hidden_state_dim, seed=0)
@@ -1100,7 +1126,7 @@ def ppo_phase(cfg, dev) -> dict:
     torch.cuda.synchronize()
     held_mb = torch.cuda.memory_allocated(dev) / 2**20
     torch.cuda.reset_peak_memory_stats(dev)
-    step_cuda.launches = raycast_cuda.launches = row_gather_cuda.launches = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     host_rows = []
     host0 = time.perf_counter()
@@ -1111,8 +1137,7 @@ def ppo_phase(cfg, dev) -> dict:
     end.record()
     torch.cuda.synchronize()
     host_ms_it = (time.perf_counter() - host0) * 1e3 / PPO_ITERS
-    launches = {"systems": step_cuda.launches, "raycast": raycast_cuda.launches,
-                "row_gather": row_gather_cuda.launches}
+    launches = read_launches()
     ms = start.elapsed_time(end) / PPO_ITERS
     log(f"[ppo] {PPO_ITERS} iterations at {cfg.num_worlds}x{cfg.max_agents}, hidden {HIDDEN}, "
         f"bf16, rollout {PPO_T}, 1 x {PPO_M} minibatches, {PPO_SLOTS} learner rows per class "
@@ -1140,7 +1165,8 @@ def ppo_phase(cfg, dev) -> dict:
 
     it_plain, _ = ppo.make_ppo_trainer(models, cfg, use_kernels=False, **kw)
     ks, ps = state.clone(), state.clone()
-    kts, pts = clone_train_states(tstates), clone_train_states(tstates)
+    kts = tuple(clone_train_state(t) for t in tstates)
+    pts = tuple(clone_train_state(t) for t in tstates)
     sub = rng.fold_in(key, 1000)
     t0 = time.perf_counter()
     ks, kts, km = it(ks, kts, sub)
@@ -1198,6 +1224,378 @@ def reference_ppo(dev) -> None:
         f"tolerance {mbad}; dropped rows {sum(float(v) for k, v in mc.items() if 'dropped' in k):.0f}")
     check(not bad and surr and hid <= 1e-5 and well <= 1e-6 and float(diff.max()) <= 2 * LR
           and not mbad, "PPO iteration card vs CPU")
+
+
+def clone_train_state(ts):
+    """A copy of one train state (a species' or the stacked one)."""
+    from madrona_bots_tpu_torch.learn.a2c import AdamState, SpeciesTrainState
+    return SpeciesTrainState(ts.params.clone(), AdamState(*(x.clone() for x in ts.opt_state)))
+
+
+def reset_launches() -> None:
+    from madrona_bots_tpu_torch.ops import raycast_cuda, row_gather_cuda, step_cuda
+    step_cuda.launches = raycast_cuda.launches = row_gather_cuda.launches = 0
+
+
+def read_launches() -> dict:
+    from madrona_bots_tpu_torch.ops import raycast_cuda, row_gather_cuda, step_cuda
+    return {"systems": step_cuda.launches, "raycast": raycast_cuda.launches,
+            "row_gather": row_gather_cuda.launches}
+
+
+def events_ms(fn, n: int = 1) -> float:
+    """CUDA-event ms per unit of one call of `fn` that does `n` units."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def stacked_states(sac, tstates):
+    """The stacked train state of per-species train states."""
+    from madrona_bots_tpu_torch.learn.a2c import SpeciesTrainState
+    return SpeciesTrainState(sac.stack_params([t.params for t in tstates]),
+                             sac.stack_opt_state([t.opt_state for t in tstates]))
+
+
+def stacked_train_phase(cfg, dev, train) -> dict:
+    """The species-stacked train tick at the bench shape (hidden 128, bf16,
+    10 learner rows per class) from the loop's trained state and parameters,
+    stacked: STACKED_TICKS counted ticks (one launch of each kernel a tick);
+    4 ticks on the kernel and on the plain path agree; stacked and loop ticks
+    timed in alternation by CUDA events; the share of
+    actions a stacked and a loop tick from one state draw differently."""
+    from madrona_bots_tpu_torch import rng
+    from madrona_bots_tpu_torch.env.state import FIELDS
+    from madrona_bots_tpu_torch.learn import a2c
+    from madrona_bots_tpu_torch.models.stacked import StackedActorCritic, stackable
+
+    models = train["models"]
+    check(stackable([m.config for m in models]), "stacked: seed 0's configs are not stackable")
+    sac = StackedActorCritic(models)
+    log(f"[stacked] train: depths {sac.depths}, cells {sac.cells}, {sac.num_params} stacked "
+        f"parameters ({sum(m.num_params for m in models)} unpadded)")
+    kw = dict(lr=LR, compute_dtype=torch.bfloat16, learner_slots_per_class=ROWS)
+    tick, _ = a2c.make_train_tick(models, cfg, stacked=True, **kw)
+    state, ts = train["state"].clone(), stacked_states(sac, train["tstates"])
+    key = rng.key(21, dev)
+
+    def run(n, state, ts, key):
+        m = None
+        for _ in range(n):
+            key, sub = rng.split(key, 2)
+            state, ts, m = tick(state, ts, sub)
+            a2c.stack_metrics(m).cpu()                    # the CLI's one copy
+        return state, ts, key, m
+
+    t0 = time.perf_counter()
+    state, ts, key, m = run(4, state, ts, key)
+    warm_s = time.perf_counter() - t0
+    held = [state, ts, key]
+
+    def stacked_ticks(n):
+        held[0], held[1], held[2], _ = run(n, *held)
+
+    reset_launches()
+    ms = events_ms(lambda: stacked_ticks(STACKED_TICKS), STACKED_TICKS)
+    launches = read_launches()
+    per_tick = {k: v // STACKED_TICKS for k, v in launches.items()}
+    log(f"[stacked] train: {STACKED_TICKS} stacked ticks at {cfg.num_worlds}x{cfg.max_agents}, "
+        f"hidden {HIDDEN}, bf16, {ROWS} learner rows per class (warm-up 4 ticks "
+        f"{warm_s:.1f} s): {ms:.3f} ms/tick, {cfg.num_worlds * 1000.0 / ms:.1f} env-steps/s; "
+        f"launches {json.dumps(launches)}")
+    check(launches == {k: STACKED_TICKS for k in launches}, f"stacked launches {launches}")
+    state, ts = held[0], held[1]
+    check(all(bool(torch.isfinite(v)) for v in m.values()), "stacked metrics not finite")
+
+    # Kernel path against plain path, from clones.
+    tick_plain, _ = a2c.make_train_tick(models, cfg, stacked=True, use_kernels=False, **kw)
+    ks, ps, kts, pts = state.clone(), state.clone(), clone_train_state(ts), clone_train_state(ts)
+    for t in range(4):
+        sub = rng.fold_in(key, 1000 + t)
+        ks, kts, _ = tick(ks, kts, sub)
+        ps, pts, _ = tick_plain(ps, pts, sub)
+    torch.cuda.synchronize()
+    diff = {f: int((getattr(ks, f) != getattr(ps, f)).sum()) for f in FIELDS}
+    pdiff = float((kts.params - pts.params).abs().max())
+    log(f"[stacked] train: 4 ticks kernels vs plain: {sum(diff.values())} state mismatches "
+        f"(actions {diff['action']}, hidden {diff['hidden']}); params max |diff| {pdiff:.3e}")
+    check(sum(diff.values()) == 0 and pdiff == 0.0, f"stacked kernel vs plain: {diff}, {pdiff}")
+    del ks, ps, kts, pts
+
+    # The share of actions that differ between a loop and a stacked tick
+    # from one state, parameters and key (printed, not checked).
+    loop_tick = train["tick"]
+    base, lts = train["state"], train["tstates"]
+    sub = rng.key(33, dev)
+    sl, _, _ = loop_tick(base.clone(), tuple(clone_train_state(t) for t in lts), sub)
+    ss, _, _ = tick(base.clone(), stacked_states(sac, lts), sub)
+    rows = sl.alive | ss.alive
+    differ = int(((sl.action != ss.action).any(dim=-1) & rows).sum())
+    share = differ / max(int(rows.sum()), 1)
+    log(f"[stacked] train: one loop and one stacked tick from one state and key: {differ} of "
+        f"{int(rows.sum())} alive rows drew another action (share {share:.6f}; cuBLAS's batched "
+        "and single products need not agree in bits)")
+    del sl, ss
+
+    # Stacked and loop ticks in alternation, CUDA events.
+    lheld = [base.clone(), tuple(clone_train_state(t) for t in lts), rng.key(44, dev)]
+
+    def loop_ticks(n):
+        for _ in range(n):
+            lheld[2], sub = rng.split(lheld[2], 2)
+            lheld[0], lheld[1], lm = loop_tick(lheld[0], lheld[1], sub)
+            a2c.stack_metrics(lm).cpu()
+
+    rounds = {"loop": [], "stacked": []}
+    for _ in range(STACKED_ROUNDS):
+        rounds["loop"].append(events_ms(lambda: loop_ticks(8), 8))
+        rounds["stacked"].append(events_ms(lambda: stacked_ticks(8), 8))
+    med = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+    log(f"[stacked] train: ms/tick in alternation, 8 ticks a round, {STACKED_ROUNDS} rounds "
+        f"(CUDA events): loop {json.dumps(rounds['loop'])}, stacked "
+        f"{json.dumps(rounds['stacked'])}; medians loop {med['loop']:.3f}, stacked "
+        f"{med['stacked']:.3f} (stacked / loop {med['stacked'] / med['loop']:.3f})")
+    del lheld
+
+    return dict(tick=tick, sac=sac, state=held[0], tstates=held[1], per_tick=per_tick,
+                ms=med["stacked"], loop_ms=med["loop"], whole=lambda: stacked_ticks(1))
+
+
+def stacked_ppo_phase(cfg, dev, run) -> dict:
+    """The stacked PPO trainer at the PPO bench shape from the loop phase's
+    state and parameters, stacked: 1 warm-up and 1 counted iteration (16
+    launches of each kernel), peak device memory; one iteration on the
+    kernel and on the plain path agree; stacked and loop iterations in
+    alternation. `whole` runs one more iteration, for `stacked_where`."""
+    from madrona_bots_tpu_torch import rng
+    from madrona_bots_tpu_torch.learn import a2c, ppo
+    from madrona_bots_tpu_torch.models.stacked import StackedActorCritic
+
+    models, NS = run["models"], cfg.num_species
+    sac = StackedActorCritic(models)
+    kw = dict(rollout_len=PPO_T, num_minibatches=PPO_M, compute_dtype=torch.bfloat16,
+              learner_slots_per_class=PPO_SLOTS)
+    it, _ = ppo.make_ppo_trainer(models, cfg, stacked=True, **kw)
+    key = run["key"]
+    held = [run["state"].clone(), stacked_states(sac, run["tstates"]), 0]
+    p0 = held[1].params.clone()
+
+    def iterate():
+        held[2] += 1
+        held[0], held[1], m = it(held[0], held[1], rng.fold_in(key, 2000 + held[2]))
+        return a2c.stack_metrics(m).cpu(), m
+
+    t0 = time.perf_counter()
+    iterate()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mb = torch.cuda.memory_allocated(dev) / 2**20
+    reset_launches()
+    out = []
+    ms = events_ms(lambda: out.append(iterate()))
+    launches = read_launches()
+    hist, m = out[0]
+    log(f"[stacked] ppo: 1 stacked iteration at {cfg.num_worlds}x{cfg.max_agents}, hidden "
+        f"{HIDDEN}, bf16, rollout {PPO_T}, 1 x {PPO_M}, {PPO_SLOTS} learner rows (warm-up "
+        f"{warm_s:.1f} s): {ms:.3f} ms/iteration, "
+        f"{cfg.num_worlds * PPO_T * 1000.0 / ms:.1f} env-steps/s; launches "
+        f"{json.dumps(launches)}; device memory {base_mb:.0f} MiB before, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB during it")
+    check(launches == {k: PPO_T for k in launches}, f"stacked ppo launches {launches}")
+    check(bool(torch.isfinite(hist).all()), "stacked ppo metrics not finite")
+    moved = float((held[1].params - p0).abs().max())
+    check(moved > 0, "stacked ppo: parameters did not move")
+
+    it_plain, _ = ppo.make_ppo_trainer(models, cfg, stacked=True, use_kernels=False, **kw)
+    ks, ps = held[0].clone(), held[0].clone()
+    kts, pts = clone_train_state(held[1]), clone_train_state(held[1])
+    sub = rng.fold_in(key, 3000)
+    t0 = time.perf_counter()
+    ks, kts, km = it(ks, kts, sub)
+    ps, pts, pm = it_plain(ps, pts, sub)
+    torch.cuda.synchronize()
+    mism, _ = state_mismatches(ks, ps)
+    pdiff = float((kts.params - pts.params).abs().max())
+    bad = metrics_close(km, pm)
+    log(f"[stacked] ppo: 1 iteration kernels vs plain ({time.perf_counter() - t0:.1f} s): "
+        f"{mism['exact']} exact-field mismatches, {mism['surrounding']} surrounding outside "
+        f"tolerance; params max |diff| {pdiff:.3e}; metrics outside tolerance {bad}")
+    check(mism["exact"] == 0 and mism["surrounding"] == 0 and pdiff == 0.0 and not bad,
+          f"stacked ppo kernel vs plain: {mism}, {pdiff}, {bad}")
+    del ks, ps, kts, pts
+
+    lheld = [run["state"].clone(), tuple(clone_train_state(t) for t in run["tstates"]), 0]
+
+    def loop_iterate():
+        lheld[2] += 1
+        lheld[0], lheld[1], lm = run["it"](lheld[0], lheld[1], rng.fold_in(key, 4000 + lheld[2]))
+        a2c.stack_metrics(lm).cpu()
+
+    rounds = {"loop": [], "stacked": []}
+    for _ in range(STACKED_PPO_ROUNDS):
+        rounds["loop"].append(events_ms(loop_iterate))
+        rounds["stacked"].append(events_ms(iterate))
+    med = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+    log(f"[stacked] ppo: ms/iteration in alternation, {STACKED_PPO_ROUNDS} rounds (CUDA "
+        f"events): loop {json.dumps(rounds['loop'])}, stacked {json.dumps(rounds['stacked'])}; "
+        f"medians loop {med['loop']:.1f}, stacked {med['stacked']:.1f} (stacked / loop "
+        f"{med['stacked'] / med['loop']:.3f})")
+    del lheld
+
+    return dict(per_iteration=launches, ms=med["stacked"], loop_ms=med["loop"],
+                whole=iterate)
+
+
+def stacked_where(strain, sppo) -> None:
+    """Profiler traces of two stacked ticks and one stacked PPO iteration:
+    device kernels, busy time and idle share against the unprofiled time.
+    They run after every other trace: a short trace taken after a large one
+    lost kernel events in the same process."""
+    for label, fn, n, ms in (("stacked tick", strain["whole"], 2, host_ms(strain["whole"])),
+                             ("stacked ppo iteration", sppo["whole"], 1, sppo["ms"])):
+        launched, busy_ms, wall_ms, kern = traced(fn, n)
+        top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+        log(f"[where] profiled {label}: {launched:.0f} device kernels, device busy "
+            f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
+            f"{1 - busy_ms / wall_ms:.3f}; against the unprofiled {ms:.3f} ms: "
+            f"{max(0.0, 1 - busy_ms / ms):.3f}); top by device time: "
+            + "; ".join(f"{e.key[:48]} {getattr(e, 'self_device_time_total', 0.0) / n / 1e3:.3f}"
+                        f" ms ({e.count // n})" for e in top))
+
+
+def block_phase(cfg, train, strain) -> None:
+    """The CLI's block (`training_loop.make_block`) at the bench train shape
+    with K = BLOCK ticks, best tracking on, loop and stacked: the launches of
+    one block counted, then ms per tick of a block (its metrics, best values
+    and indices copied out) against the per-tick CLI loop (a split, a tick
+    and the metrics copy a tick), in alternation by CUDA events."""
+    from madrona_bots_tpu_torch import rng
+    from madrona_bots_tpu_torch.learn import a2c
+    from madrona_bots_tpu_torch.learn.training_loop import BEST_METRICS, make_block
+
+    NS, dev = cfg.num_species, train["state"].alive.device
+    modes = {"loop": (train["tick"], lambda ts, sp: ts[sp], train["state"],
+                      tuple(clone_train_state(t) for t in train["tstates"])),
+             "stacked": (strain["tick"], lambda ts, sp: ts, strain["state"],
+                         clone_train_state(strain["tstates"]))}
+    times = {}
+    for name, (tick, view, state0, ts0) in modes.items():
+        block = make_block(tick, BLOCK, NS, view, True)
+        held = [state0.clone(), ts0, rng.key(55, dev)]
+        best = torch.full((len(BEST_METRICS), NS), float("inf"), device=dev)
+
+        def one_block():
+            held[2], sub = rng.split(held[2], 2)
+            held[0], held[1], ms, bv, _, bidx, _ = block(held[0], held[1], sub, best)
+            return ms.cpu(), bv.cpu(), bidx.cpu()
+
+        def per_tick():
+            for _ in range(BLOCK):
+                held[2], sub = rng.split(held[2], 2)
+                held[0], held[1], m = tick(held[0], held[1], sub)
+                a2c.stack_metrics(m).cpu()
+
+        one_block()                                            # warm-up
+        reset_launches()
+        out = one_block()
+        launches = read_launches()
+        check(launches == {k: BLOCK for k in launches}, f"block {name} launches {launches}")
+        check(tuple(out[0].shape) == (BLOCK, len(a2c.METRIC_NAMES) * NS)
+              and bool(torch.isfinite(out[0]).all()), f"block {name} metrics")
+        check(bool((out[2] >= 0).all()), f"block {name}: no best tracked from inf")
+        rounds = {"block": [], "per_tick": []}
+        for _ in range(BLOCK_ROUNDS):
+            rounds["block"].append(events_ms(one_block, BLOCK))
+            rounds["per_tick"].append(events_ms(per_tick, BLOCK))
+        times[name] = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+        log(f"[block] {name}: K = {BLOCK} at {cfg.num_worlds}x{cfg.max_agents}, best tracking "
+            f"on: launches a block {json.dumps(launches)}; ms/tick in alternation "
+            f"({BLOCK_ROUNDS} rounds, CUDA events): block {json.dumps(rounds['block'])}, "
+            f"per-tick CLI loop {json.dumps(rounds['per_tick'])}; medians block "
+            f"{times[name]['block']:.3f}, per tick {times[name]['per_tick']:.3f}")
+        del held
+
+
+def reference_stacked(dev) -> None:
+    """At 4 x 64 in f32: two stacked ticks and one stacked PPO iteration on
+    the card against the same on the CPU's plain path (the tolerances of
+    the loop's reference checks); and on the card, stacked against loop
+    (4 ticks, 2 PPO iterations): the same integer state trajectory."""
+    from madrona_bots_tpu_torch import EnvConfig, init_state, rng
+    from madrona_bots_tpu_torch.config import NUM_ACTIONS
+    from madrona_bots_tpu_torch.env.state import FIELDS, state_from_numpy, state_to_numpy
+    from madrona_bots_tpu_torch.learn import a2c, ppo
+    from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+    from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+
+    small = EnvConfig(num_worlds=4, init_agents=32, max_agents=64)
+    gen = SpeciesNetGenerator(small.obs_dim, NUM_ACTIONS, 32, small.hidden_state_dim, seed=0)
+    models = [ActorCritic.from_generator(gen) for _ in range(small.num_species)]
+    floats = ("hidden", "prev_hidden", "surrounding", "prev_surrounding")
+
+    def to_card(ts):
+        return a2c.SpeciesTrainState(ts.params.to(dev), a2c.AdamState(
+            *(y.to(dev) for y in ts.opt_state)))
+
+    def compare(label, sg, tg, sc, tc, well_tol, mg=None, mc=None):
+        ng, nc = state_to_numpy(sg), state_to_numpy(sc)
+        bad = [f for f in FIELDS if f not in floats and not np.array_equal(ng[f], nc[f])]
+        hid = float(np.abs(ng["hidden"] - nc["hidden"]).max())
+        surr = np.allclose(ng["surrounding"], nc["surrounding"], rtol=SURR_RTOL, atol=SURR_ATOL)
+        diff = (tg.params.cpu() - tc.params).abs()
+        well = float(diff[tc.opt_state.mu.abs() >= 1e-7].max())
+        mbad = [] if mg is None else metrics_close({k: float(v) for k, v in mg.items()}, mc)
+        log(f"[reference] {label} at 4x64, card vs CPU: exact-field mismatches {bad}; hidden "
+            f"max |diff| {hid:.3e}; params max |diff| {float(diff.max()):.3e} ({well:.3e} "
+            f"where |mu| >= 1e-7){'' if mg is None else f'; metrics outside tolerance {mbad}'}")
+        check(not bad and surr and hid <= 1e-5 and well <= well_tol
+              and float(diff.max()) <= 2 * LR and not mbad, f"{label} card vs CPU")
+
+    tick, opt = a2c.make_train_tick(models, small, lr=LR, learner_slots_per_class=8, stacked=True)
+    tc = a2c.init_stacked_train_state(models, rng.key(3), opt)
+    sc = init_state(small, 5, "cpu")
+    for t in range(2):
+        sg, tg = state_from_numpy(state_to_numpy(sc), dev), to_card(tc)
+        sc, tc, _ = tick(sc, tc, rng.key(40 + t))
+        sg, tg, _ = tick(sg, tg, rng.key(40 + t, dev))
+        compare(f"f32 stacked train tick {t + 1}", sg, tg, sc, tc, 1e-6 if t == 0 else 1e-5)
+
+    kw = dict(rollout_len=4, num_minibatches=2, learner_slots_per_class=8, stacked=True)
+    it_cpu, opt = ppo.make_ppo_trainer(models, small, use_kernels=False, **kw)
+    it_card, _ = ppo.make_ppo_trainer(models, small, **kw)
+    tc = a2c.init_stacked_train_state(models, rng.key(3), opt)
+    sc = init_state(small, 6, "cpu")
+    sg, tg = state_from_numpy(state_to_numpy(sc), dev), to_card(tc)
+    sc, tc, mc = it_cpu(sc, tc, rng.key(60))
+    sg, tg, mg = it_card(sg, tg, rng.key(60, dev))
+    compare("f32 stacked PPO iteration (rollout 4, 2 minibatches, 8 learner rows)",
+            sg, tg, sc, tc, 1e-6, mg, mc)
+
+    ints = ("alive", "species", "health", "action", "pos", "food_count", "finder")
+    for label, make, n in (("ticks", a2c.make_train_tick, 4),
+                           ("PPO iterations", ppo.make_ppo_trainer, 2)):
+        extra = (dict(lr=LR) if make is a2c.make_train_tick
+                 else dict(rollout_len=4, num_minibatches=2))
+        f_l, opt_l = make(models, small, learner_slots_per_class=8, **extra)
+        f_s, opt_s = make(models, small, learner_slots_per_class=8, stacked=True, **extra)
+        ts_l = tuple(to_card(t) for t in a2c.init_train_states(models, rng.key(3), opt_l))
+        ts_s = to_card(a2c.init_stacked_train_state(models, rng.key(3), opt_s))
+        st_l, st_s = init_state(small, 7, dev), init_state(small, 7, dev)
+        mism = {}
+        for t in range(n):
+            k = rng.key(70 + t, dev)
+            st_l, ts_l, _ = f_l(st_l, ts_l, k)
+            st_s, ts_s, _ = f_s(st_s, ts_s, k)
+            for f in ints:
+                mism[f] = mism.get(f, 0) + int((getattr(st_l, f) != getattr(st_s, f)).sum())
+        log(f"[reference] f32 stacked vs loop on the card, {n} {label} at 4x64: integer state "
+            f"mismatches {json.dumps(mism)}")
+        check(sum(mism.values()) == 0, f"stacked vs loop {label}: {mism}")
 
 
 def cli_phase(flags=(), label: str = "") -> None:
@@ -1376,7 +1774,7 @@ def ppo_where(run, cfg) -> None:
     }
     for s in range(cfg.num_species):
         parts[f"update_species_{s + 1}"] = (
-            lambda s=s: it.update_species(s, tstates[s], bufs[s]))
+            lambda s=s: it.updates(it.models[s], tstates[s], bufs[s]))
     parts["metrics_copy"] = lambda: a2c.stack_metrics(run["metrics"]).cpu()
     parts["whole_iteration"] = whole
     ms = {name: host_ms(fn, reps=3) for name, fn in parts.items()}

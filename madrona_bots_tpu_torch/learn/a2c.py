@@ -14,6 +14,13 @@ that compaction is one launch of the row-gather kernel
 (`ops/row_gather_cuda.py`) over the tick's seven fields; in f32 it is an
 exact gather of one payload (`learn/pack.py`).
 
+The species-stacked update (`stacked=True`, the JAX package's stacked
+branch) runs the four species as one: one forward of `StackedActorCritic`
+(`models/stacked.py`) over the [NS, W * L] learner rows, one categorical
+draw with the stacked keys `fold_in(key, s)`, one loss and one Adam step on
+the stacked parameter vector. Its actions equal the loop's given equal
+logits, and its metrics have the loop's names.
+
 `compute_dtype=torch.bfloat16` runs the forwards in bf16 against f32 master
 parameters; gradients and Adam stay f32, and memory written back in the
 compacting path travels in bf16.
@@ -21,7 +28,7 @@ compacting path travels in bf16.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence
+from typing import Callable, Dict, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +42,7 @@ from madrona_bots_tpu_torch.learn.pack import (class_major, compact_gather, comp
                                                expand_scatter,
                                                kslot_from_class_slots, split3)
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic, compute_loss
+from madrona_bots_tpu_torch.models.stacked import StackedActorCritic
 from madrona_bots_tpu_torch.ops import row_gather_cuda
 
 f32 = torch.float32
@@ -63,16 +71,17 @@ class Adam:
     update = -lr * m_hat / (sqrt(v_hat) + eps), so checkpoints carry over
     between the packages one to one.
 
-    With `max_grad_norm` it is `optax.flatten(optax.chain(
-    clip_by_global_norm(max_grad_norm), adam(...)))` (the PPO optimizer):
-    the gradient is kept where its norm sqrt(sum(g * g)) is below the limit
-    and is (g / norm) * max_grad_norm otherwise. The clip has no state, so
-    the state leaves stay (count, mu, nu)."""
+    `clip` maps the gradient before the step: `clip_by_global_norm(n)`
+    makes it `optax.flatten(optax.chain(clip_by_global_norm(n), adam(...)))`
+    (the PPO optimizer), `StackedActorCritic`'s per-species clip the stacked
+    PPO optimizer. A clip has no state, so the state leaves stay (count, mu,
+    nu)."""
 
     def __init__(self, lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, max_grad_norm: float | None = None):
+                 eps: float = 1e-8,
+                 clip: Callable[[torch.Tensor], torch.Tensor] | None = None):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-        self.max_grad_norm = max_grad_norm
+        self.clip = clip
 
     def init(self, params: torch.Tensor) -> AdamState:
         return AdamState(torch.zeros((), dtype=torch.int32, device=params.device),
@@ -80,10 +89,8 @@ class Adam:
 
     def update(self, grad: torch.Tensor, state: AdamState, params: torch.Tensor):
         """(new params, new state)."""
-        if self.max_grad_norm is not None:
-            norm = torch.sqrt(torch.sum(grad * grad))
-            grad = torch.where(norm < self.max_grad_norm, grad,
-                               (grad / norm) * self.max_grad_norm)
+        if self.clip is not None:
+            grad = self.clip(grad)
         mu = (1 - self.b1) * grad + self.b1 * state.mu
         nu = (1 - self.b2) * (grad * grad) + self.b2 * state.nu
         count = state.count + 1
@@ -92,6 +99,15 @@ class Adam:
         nu_hat = nu / (1 - torch.pow(torch.full_like(t, self.b2), t))
         upd = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
         return params + upd, AdamState(count, mu, nu)
+
+
+def clip_by_global_norm(max_norm: float) -> Callable[[torch.Tensor], torch.Tensor]:
+    """`optax.clip_by_global_norm` on a flat gradient: kept where its norm
+    sqrt(sum(g * g)) is below `max_norm`, (g / norm) * max_norm otherwise."""
+    def clip(grad: torch.Tensor) -> torch.Tensor:
+        norm = torch.sqrt(torch.sum(grad * grad))
+        return torch.where(norm < max_norm, grad, (grad / norm) * max_norm)
+    return clip
 
 
 def make_optimizer(lr: float = 3e-4) -> Adam:
@@ -109,11 +125,24 @@ def init_train_states(models: Sequence[ActorCritic], key: torch.Tensor,
     return tuple(states)
 
 
-def policy_forward(model: ActorCritic, flat: torch.Tensor, obs: torch.Tensor,
+def init_stacked_train_state(models: Sequence[ActorCritic], key: torch.Tensor,
+                             optimizer: Adam) -> SpeciesTrainState:
+    """One train state over the stacked vector of `models/stacked.py`: the
+    parameters `init_train_states` draws, stacked, and the optimizer's
+    state of them. Adam is elementwise, so its stacked trajectory is the
+    per-species one."""
+    sac = StackedActorCritic(models)
+    params = sac.stack_params([m.flatten(m.init(rng.fold_in(key, i)))
+                               for i, m in enumerate(models)])
+    return SpeciesTrainState(params, optimizer.init(params))
+
+
+def policy_forward(model, flat: torch.Tensor, obs: torch.Tensor,
                    mem: torch.Tensor, compute_dtype=None):
-    """(logits, value, new memory) in f32 from the flat parameters; with
-    `compute_dtype` the leaves, obs and memory are cast to it first (bf16
-    forwards against f32 master parameters)."""
+    """(logits, value, new memory) in f32 from the flat parameters of an
+    `ActorCritic` or a `StackedActorCritic`; with `compute_dtype` the
+    leaves, obs and memory are cast to it first (bf16 forwards against f32
+    master parameters)."""
     leaves = model.unflatten(flat)
     if compute_dtype is not None:
         leaves = [t.to(compute_dtype) for t in leaves]
@@ -122,14 +151,20 @@ def policy_forward(model: ActorCritic, flat: torch.Tensor, obs: torch.Tensor,
     return logits.to(f32), v.to(f32), h.to(f32)
 
 
-def _species_update(model: ActorCritic, optimizer: Adam, ts: SpeciesTrainState,
+def _species_update(model, optimizer: Adam, ts: SpeciesTrainState,
                     obs_cur, obs_prev, mem_cur, mem_prev, prev_actions, rewards,
                     mask, key, gamma: float, proper_log_probs: bool,
                     compute_dtype=None, loss_mask=None):
-    """One species' gradient step on [N, ...] rows; `mask` [N] f32 selects
-    this species' alive rows and `loss_mask` (default `mask`) also drops
-    rows without a valid previous transition (SPEC D9). Returns (new train
-    state, sampled actions [N], new memory [N, H] f32, metrics)."""
+    """One species' gradient step on [N, ...] rows, or every species' at
+    once: with `model` a `StackedActorCritic`, `ts` its stacked train state,
+    rows [NS, N, ...] and `key` [NS, 2] (species s samples with its own
+    key), one forward, one draw and one loss whose sum over species gives
+    each species its own gradient in its own slice. `mask` [..., N] f32
+    selects alive rows and `loss_mask` (default `mask`) also drops rows
+    without a valid previous transition (SPEC D9). Returns (new train
+    state, sampled actions [..., N], new memory [..., N, H] f32, metrics:
+    actor_loss, critic_loss, total_loss, avg_action_prob,
+    avg_action_entropy, each [] or [NS])."""
     if loss_mask is None:
         loss_mask = mask
 
@@ -146,27 +181,25 @@ def _species_update(model: ActorCritic, optimizer: Adam, ts: SpeciesTrainState,
         # The reference indexes raw actor outputs as "log probs" unless
         # proper_log_probs asks for the log-softmax.
         logp_all = F.log_softmax(logits_p, dim=-1) if proper_log_probs else logits_p
-        logp = torch.gather(logp_all, 1, prev_actions.long()[:, None])[:, 0]
+        logp = torch.gather(logp_all, -1, prev_actions.long()[..., None])[..., 0]
         actor_loss, critic_loss = compute_loss(logp, rewards, v_prev, v_new,
                                                gamma=gamma, mask=loss_mask)
         total = actor_loss + critic_loss
-        (grad,) = torch.autograd.grad(total, flat)
+        (grad,) = torch.autograd.grad(total.sum(), flat)
     new_params, new_opt = optimizer.update(grad, ts.opt_state, ts.params)
 
     with torch.no_grad():
-        denom = torch.clamp(mask.sum(), min=1.0)
+        denom = torch.clamp(mask.sum(dim=-1), min=1.0)
         logp_soft = F.log_softmax(logits, dim=-1)
-        logp_taken = torch.gather(logp_soft, 1, actions[:, None])[:, 0]
+        logp_taken = torch.gather(logp_soft, -1, actions[..., None])[..., 0]
         probs = F.softmax(logits, dim=-1)
         entropy = -torch.sum(probs * torch.log(torch.clamp(probs, min=1e-12)), dim=-1)
         metrics = {
             "actor_loss": actor_loss.detach(),
             "critic_loss": critic_loss.detach(),
             "total_loss": total.detach(),
-            "count": mask.sum(),
-            "reward": torch.sum(rewards * mask),
-            "avg_action_prob": torch.exp(torch.sum(logp_taken * mask) / denom),
-            "avg_action_entropy": torch.sum(entropy * mask) / denom,
+            "avg_action_prob": torch.exp(torch.sum(logp_taken * mask, dim=-1) / denom),
+            "avg_action_entropy": torch.sum(entropy * mask, dim=-1) / denom,
         }
     return SpeciesTrainState(new_params, new_opt), actions, new_mem, metrics
 
@@ -257,11 +290,15 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
     `state`. `use_kernels=False` runs every kernel's plain version (on any
     device); on CUDA tensors the default launches the kernels.
 
+    stacked=True runs the NS updates as one batched update over the
+    species-stacked parameters (`models/stacked.py`): `train_states` is the
+    one state of `init_stacked_train_state` instead of the per-species
+    tuple, and the metrics keep the loop's names. It needs learner-slot
+    compaction (learner_slots_per_class < A / NS).
+
     quirk_inloop_shift (SPEC Q8) reproduces the reference's shift inside
     the species loop; see the JAX `make_train_tick`. Loop path only, without
-    compaction. The species-stacked update is not ported yet."""
-    if stacked:
-        raise NotImplementedError("the species-stacked A2C tick is not ported yet")
+    compaction."""
     optimizer = make_optimizer(lr)
     NS = cfg.num_species
     if len(models) != NS:
@@ -270,126 +307,117 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
     Lcap = learner_slots_per_class
     compacting = Lcap is not None and Lcap < Asub
     rows = Lcap if compacting else Asub
-    if quirk_inloop_shift and compacting:
+    if stacked and not compacting:
+        raise ValueError("the stacked tick requires learner-slot compaction "
+                         "(learner_slots_per_class < A / NS)")
+    if quirk_inloop_shift and (compacting or stacked):
         raise ValueError("quirk_inloop_shift pins the reference ordering on the "
                          "uncompacted per-species loop path only")
+    sac = StackedActorCritic(models) if stacked else None
     obs_dtype = f32 if compute_dtype is None else compute_dtype
     D, H = cfg.obs_dim, cfg.hidden_state_dim
+    c0 = 2 * D + 2 * H                                      # scalar columns
+
+    def learner_rows(state: WorldState):
+        """Every species' update inputs as [NS, B, ...] rows (B = W * rows):
+        (obs_cur, obs_prev, mem, mem_prev, prev action, reward), mask, loss
+        mask, dropped rows [NS], the [W, A] class mask, and the compaction's
+        (slot, valid_g) or None."""
+        W = state.alive.shape[0]
+        B = W * rows
+        if compacting:
+            grec4, slot, valid_g, keep, m_full = compact_learner_rows(
+                state, cfg, rows, compute_dtype, quirk_compat, use_kernels)
+            g = grec4.reshape(NS, B, grec4.shape[-1])
+            mask = valid_g.reshape(NS, B).to(f32)
+            if compute_dtype is None:
+                rew = g[..., c0 + 2]
+            else:
+                rew = sum(g[..., c0 + 2 + i].to(f32) for i in range(3))
+            up = (g[..., 0:D], g[..., D:2 * D], g[..., 2 * D:2 * D + H],
+                  g[..., 2 * D + H:c0], g[..., c0 + 1].to(torch.int64), rew)
+            dropped = (m_full.reshape(W, Asub, NS).sum(dim=(0, 1))
+                       - keep.reshape(NS, -1).sum(dim=1))
+            return up, mask, g[..., c0].to(f32) * mask, dropped, m_full, (slot, valid_g)
+
+        def cm(x):
+            return class_major(x, NS).reshape((NS, B) + x.shape[2:])
+
+        m_full, lm_full = class_masks(state, NS)
+        mask, loss_mask = cm(m_full).to(f32), cm(lm_full).to(f32)
+        obs_cur = cm(construct_obs(state, cfg, prev=False, quirk_compat=quirk_compat,
+                                   dtype=obs_dtype))
+        obs_prev = cm(construct_obs(state, cfg, prev=True, quirk_compat=quirk_compat,
+                                    dtype=obs_dtype))
+        mem = cm(state.hidden)
+        mem_prev = cm(state.prev_hidden)
+        if quirk_inloop_shift:
+            # Q8: species s >= 2 read post-shift prev buffers: PREV
+            # depth/semantic with CURRENT health/pos/surrounding; every
+            # species' prev memory is its current one, and the loss takes
+            # all alive rows (no D9 mask).
+            S_ = cfg.sensor_size
+            spliced = torch.cat([obs_prev[..., :S_], obs_cur[..., S_:S_ + 3],
+                                 obs_prev[..., S_ + 3:2 * S_ + 3],
+                                 obs_cur[..., 2 * S_ + 3:]], dim=-1)
+            obs_prev = torch.cat([obs_prev[:1], spliced[1:]])
+            mem_prev, loss_mask = mem, mask
+        up = (obs_cur, obs_prev, mem, mem_prev, cm(torch.argmax(state.action, dim=-1)),
+              cm(state.reward))
+        dropped = torch.zeros(NS, dtype=torch.int64, device=mask.device)
+        return up, mask, loss_mask, dropped, m_full, None
 
     def tick(state: WorldState, train_states, key: torch.Tensor):
         state = env_mod.step(state, cfg, use_kernels)
         W, A = state.alive.shape
-        Nc = W * Asub
-        c0 = 2 * D + 2 * H                                  # scalar columns
-
-        alive3 = state.alive.reshape(W, Asub, NS)
-        species3 = state.species.reshape(W, Asub, NS)
-        prev_sp3 = state.prev_species.reshape(W, Asub, NS)
-        rewards3 = state.reward.reshape(W, Asub, NS)
-        health3 = state.health.reshape(W, Asub, NS)
-        if compacting:
-            grec4, slot, valid_g, keep, m_full = compact_learner_rows(
-                state, cfg, rows, compute_dtype, quirk_compat, use_kernels)
-            valid3 = valid_g.reshape(NS, W, rows)
-            m_sums = m_full.reshape(W, Asub, NS).sum(dim=(0, 1))
-            k_sums = keep.reshape(NS, W, Asub).sum(dim=(1, 2))
+        up, mask, loss_mask, dropped, m_full, compaction = learner_rows(state)
+        if stacked:
+            keys = rng.fold_in(key, torch.arange(NS, device=key.device))
+            new_ts, actions, new_mem, m = _species_update(
+                sac, optimizer, train_states, *up, mask, keys, gamma, proper_log_probs,
+                compute_dtype, loss_mask=loss_mask)
         else:
-            obs_cur4 = construct_obs(state, cfg, prev=False, quirk_compat=quirk_compat,
-                                     dtype=obs_dtype).reshape(W, Asub, NS, D)
-            obs_prev4 = construct_obs(state, cfg, prev=True, quirk_compat=quirk_compat,
-                                      dtype=obs_dtype).reshape(W, Asub, NS, D)
-            mem4 = state.hidden.reshape(W, Asub, NS, H)
-            mem_prev4 = state.prev_hidden.reshape(W, Asub, NS, H)
-            prev_act3 = torch.argmax(state.action, dim=-1).reshape(W, Asub, NS)
+            outs = [_species_update(models[s], optimizer, train_states[s],
+                                    *(x[s] for x in up), mask[s], rng.fold_in(key, s), gamma,
+                                    proper_log_probs, compute_dtype, loss_mask=loss_mask[s])
+                    for s in range(NS)]
+            new_ts = tuple(o[0] for o in outs)
+            actions = torch.stack([o[1] for o in outs])
+            new_mem = torch.stack([o[2] for o in outs])
+            m = {k: torch.stack([o[3][k] for o in outs]) for k in outs[0][3]}
+        onehot = F.one_hot(actions, NUM_ACTIONS)
 
-        new_tstates, metrics = [], {}
-        act_out, mem_out = [], []
-        for s in range(NS):
-            mask3 = alive3[:, :, s] & (species3[:, :, s] == s + 1)
-            mask_full = mask3.to(f32).reshape(Nc)
-            if compacting:
-                g = grec4[s]
-                vmask = valid3[s].reshape(W * rows).to(f32)
-                mask = vmask
-                loss_mask = g[..., c0].to(f32).reshape(W * rows) * vmask
-                if compute_dtype is None:
-                    rew = g[..., c0 + 2].reshape(W * rows)
-                else:
-                    rew = sum(g[..., c0 + 2 + i].to(f32)
-                              for i in range(3)).reshape(W * rows)
-                up = dict(obs_cur=g[..., 0:D].reshape(W * rows, D),
-                          obs_prev=g[..., D:2 * D].reshape(W * rows, D),
-                          mem=g[..., 2 * D:2 * D + H].reshape(W * rows, H),
-                          mem_prev=g[..., 2 * D + H:c0].reshape(W * rows, H),
-                          prev_act=g[..., c0 + 1].to(torch.int64).reshape(W * rows),
-                          rewards=rew)
-                dropped = m_sums[s] - k_sums[s]
-            else:
-                mask = mask_full
-                lm3 = mask3 & (prev_sp3[:, :, s] == s + 1)
-                loss_mask = lm3.to(f32).reshape(Nc)
-                up = dict(obs_cur=obs_cur4[:, :, s].reshape(Nc, D),
-                          obs_prev=obs_prev4[:, :, s].reshape(Nc, D),
-                          mem=mem4[:, :, s].reshape(Nc, H),
-                          mem_prev=mem_prev4[:, :, s].reshape(Nc, H),
-                          prev_act=prev_act3[:, :, s].reshape(Nc),
-                          rewards=rewards3[:, :, s].reshape(Nc))
-                dropped = torch.zeros((), dtype=torch.int64, device=mask.device)
-                if quirk_inloop_shift:
-                    # Q8: species s >= 2 read post-shift prev buffers: PREV
-                    # depth/semantic with CURRENT health/pos/surrounding;
-                    # every species' prev memory is its current one, and
-                    # the loss takes all alive rows (no D9 mask).
-                    if s > 0:
-                        S_ = cfg.sensor_size
-                        oc, op = up["obs_cur"], up["obs_prev"]
-                        up["obs_prev"] = torch.cat(
-                            [op[:, :S_], oc[:, S_:S_ + 3], op[:, S_ + 3:2 * S_ + 3],
-                             oc[:, 2 * S_ + 3:]], dim=1)
-                    up["mem_prev"] = up["mem"]
-                    loss_mask = mask
+        # Population, reward and health always over the full alive set.
+        with torch.no_grad():
+            def per_class(x):
+                return class_major(x, NS).reshape(NS, -1).to(f32)
 
-            ts, actions, mem, m = _species_update(
-                models[s], optimizer, train_states[s], up["obs_cur"], up["obs_prev"],
-                up["mem"], up["mem_prev"], up["prev_act"], up["rewards"], mask,
-                rng.fold_in(key, s), gamma, proper_log_probs, compute_dtype,
-                loss_mask=loss_mask)
-            new_tstates.append(ts)
-            onehot = F.one_hot(actions, NUM_ACTIONS)
-            if compacting:
-                act_out.append((onehot.to(f32) * mask[:, None]).reshape(W, rows, NUM_ACTIONS))
-            else:
-                act_out.append((onehot.to(torch.int32) * mask[:, None].to(torch.int32))
-                               .reshape(W, rows, NUM_ACTIONS))
-            mem_out.append((mem * mask[:, None]).reshape(W, rows, H))
-            # Population, reward and health always over the full alive set.
-            with torch.no_grad():
-                m["count"] = mask_full.sum()
-                m["reward"] = torch.sum(rewards3[:, :, s].reshape(Nc) * mask_full)
-                m["dropped_rows"] = dropped
-                denom = torch.clamp(m["count"], min=1.0)
-                m["avg_health"] = torch.sum(
-                    health3[:, :, s].reshape(Nc).to(f32) * mask_full) / denom
-                m["count_per_world"] = m["count"] / W
-                hist = torch.sum(onehot.to(f32) * mask[:, None], dim=0)
-                m["popular_action"] = torch.argmax(hist).to(f32)
-            for k in METRIC_NAMES:
-                metrics[f"species_{s + 1}_{k}"] = m[k]
+            mfc = per_class(m_full)
+            count = mfc.sum(dim=-1)
+            hist = torch.sum(onehot.to(f32) * mask[..., None], dim=1)
+            m.update(count=count, reward=torch.sum(per_class(state.reward) * mfc, dim=-1),
+                     dropped_rows=dropped,
+                     avg_health=torch.sum(per_class(state.health) * mfc, dim=-1)
+                     / torch.clamp(count, min=1.0),
+                     count_per_world=count / W,
+                     popular_action=torch.argmax(hist, dim=-1).to(f32))
+        metrics = {f"species_{s + 1}_{k}": m[k][s] for s in range(NS) for k in METRIC_NAMES}
 
-        if compacting:
+        if compaction is not None:
             # One expansion for all species' actions and memory: zeros where
             # no learner row maps (dead slots and dropped overflow).
+            slot, valid_g = compaction
             sdt = bf16 if compute_dtype == bf16 else f32
-            src = torch.stack([torch.cat([o, mm], dim=-1)
-                               for o, mm in zip(act_out, mem_out)], dim=0)
-            src = src.reshape(NS * W, rows, NUM_ACTIONS + H).to(sdt)
-            out = expand_scatter(src, slot, valid_g, Asub)
-            out4 = out.reshape(NS, W, Asub, NUM_ACTIONS + H).permute(1, 2, 0, 3)
+            src = torch.cat([onehot.to(f32) * mask[..., None], new_mem * mask[..., None]],
+                            dim=-1).reshape(NS * W, rows, NUM_ACTIONS + H).to(sdt)
+            out4 = expand_scatter(src, slot, valid_g, Asub).reshape(
+                NS, W, Asub, NUM_ACTIONS + H).permute(1, 2, 0, 3)
             new_action = out4[..., :NUM_ACTIONS].to(torch.int32)
             new_hidden = out4[..., NUM_ACTIONS:]
         else:
-            new_action = torch.stack(act_out, dim=2)         # [W, Asub, NS, 6]
-            new_hidden = torch.stack(mem_out, dim=2)         # [W, Asub, NS, H]
+            new_action = (onehot.to(torch.int32) * mask[..., None].to(torch.int32)).reshape(
+                NS, W, Asub, NUM_ACTIONS).permute(1, 2, 0, 3)
+            new_hidden = (new_mem * mask[..., None]).reshape(NS, W, Asub, H).permute(1, 2, 0, 3)
         state = env_mod.shift_observations(state, cfg)
         state = state.replace(
             action=new_action.reshape(W, A, NUM_ACTIONS).contiguous(),
@@ -402,7 +430,7 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
             state = state.replace(
                 prev_action=torch.where(last, state.prev_action, state.action),
                 prev_hidden=torch.where(last, state.prev_hidden, state.hidden))
-        return state, tuple(new_tstates), metrics
+        return state, new_ts, metrics
 
     return tick, optimizer
 

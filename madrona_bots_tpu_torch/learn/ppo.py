@@ -23,7 +23,16 @@ per iteration in that minibatch-major order with one gather each.
 
 `compute_dtype=torch.bfloat16` runs the forwards (rollout and update) in
 bf16 against f32 master parameters; GAE, losses, gradients and Adam stay
-f32. The species-stacked update (`--stacked`) is not ported yet.
+f32.
+
+The species-stacked trainer (`stacked=True`, the JAX package's stacked
+branches) runs every species through one `StackedActorCritic`
+(`models/stacked.py`): one full-width forward and one categorical draw (keys
+`fold_in(key, s)`) a rollout step, buffers [M, NS, mb, ...] with the same
+rows, roll and minibatch classes as per species, and one loss and one Adam
+step a minibatch with per-species advantage normalisation, losses and
+gradient clip (`make_stacked_ppo_optimizer`). It needs learner slots; the
+record pack is the loop's.
 """
 
 from __future__ import annotations
@@ -39,10 +48,12 @@ from madrona_bots_tpu_torch.device import const
 from madrona_bots_tpu_torch.env import env as env_mod
 from madrona_bots_tpu_torch.env.state import WorldState
 from madrona_bots_tpu_torch.learn.a2c import (Adam, SpeciesTrainState, class_masks,
-                                              policy_forward)
+                                              clip_by_global_norm, policy_forward)
 from madrona_bots_tpu_torch.learn.pack import (class_major, compact_gather, compact_slots,
                                                kslot_from_class_slots, split3)
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+from madrona_bots_tpu_torch.models.stacked import (StackedActorCritic,
+                                                   per_species_clip_by_global_norm)
 from madrona_bots_tpu_torch.ops import row_gather_cuda
 
 f32 = torch.float32
@@ -96,7 +107,16 @@ def _flat_obs(depth, health, pos, semantic, surrounding, dtype=f32):
 def make_ppo_optimizer(lr: float = 3e-4, max_grad_norm: float = 0.5) -> Adam:
     """`optax.flatten(chain(clip_by_global_norm(max_grad_norm), adam(lr,
     eps=1e-5)))` on the flat parameter vector."""
-    return Adam(lr, eps=1e-5, max_grad_norm=max_grad_norm)
+    return Adam(lr, eps=1e-5, clip=clip_by_global_norm(max_grad_norm))
+
+
+def make_stacked_ppo_optimizer(sac: StackedActorCritic, lr: float = 3e-4,
+                               max_grad_norm: float = 0.5) -> Adam:
+    """The PPO optimizer of the stacked vector: each species' gradient
+    clipped by its own global norm (never the joint one), then the flat Adam
+    with eps 1e-5. Its state has the loop optimizer's leaves, so
+    `StackedActorCritic.stack_opt_state` converts checkpoints both ways."""
+    return Adam(lr, eps=1e-5, clip=per_species_clip_by_global_norm(max_grad_norm, sac))
 
 
 def gae(reward, alive, next_alive, value, last_value, gamma: float,
@@ -140,7 +160,7 @@ class PPOTrainer:
                  rollout_len: int, num_minibatches: int, update_epochs: int,
                  clip_eps: float, gamma: float, gae_lambda: float, vf_coef: float,
                  ent_coef: float, use_kernels: bool, compute_dtype,
-                 learner_slots_per_class, decorrelate: bool):
+                 learner_slots_per_class, decorrelate: bool, stacked: bool = False):
         self.models, self.cfg, self.optimizer = list(models), cfg, optimizer
         self.NS = cfg.num_species
         if len(self.models) != self.NS:
@@ -156,6 +176,10 @@ class PPOTrainer:
         self.rec_mode = L is not None and L < self.Asub
         self.rows = L if self.rec_mode else self.Asub
         self.obs_dtype = f32 if compute_dtype is None else compute_dtype
+        if stacked and not self.rec_mode:
+            raise ValueError("the stacked PPO trainer requires learner-slot compaction "
+                             "(learner_slots_per_class < A / NS)")
+        self.sac = StackedActorCritic(self.models) if stacked else None
         B = self.T * cfg.num_worlds * self.rows
         if B % num_minibatches:
             raise ValueError(f"{B} learner rows a species do not split into "
@@ -166,42 +190,50 @@ class PPOTrainer:
 
     # ---- rollout ----
 
-    def policy_step(self, params_list, state: WorldState, key, sample: bool = True):
-        """Every species' forward on its strided class view at full width,
-        actions sampled with `categorical(fold_in(key, s), logits)`. Returns
-        [W, A]-shaped (action int64, logp, value, new memory [W, A, H]) masked
-        to alive rows of the right class, and the [W, A, D] obs the forwards
-        read. With sample=False only the values are computed (the rest None)."""
+    def policy_step(self, params, state: WorldState, key, sample: bool = True):
+        """Every species' forward on its class rows (the species-major [NS, W
+        * A / NS] view) at full width: NS forwards from the species' flat
+        vectors `params`, or with the stacked trainer one forward of the
+        stacked net from the stacked vector. Actions are sampled with
+        `categorical(fold_in(key, s), logits)`, the stacked trainer's in one
+        draw of the same bits. Returns [W, A]-shaped (action int64, logp,
+        value, new memory [W, A, H]) masked to alive rows of the right
+        class, and the [W, A, D] obs the forwards read. With sample=False
+        only the values are computed (the rest None)."""
         NS, Asub = self.NS, self.Asub
         W, A = state.alive.shape
-        Nc, H = W * Asub, state.hidden.shape[-1]
+
+        def st(x):                             # [W, A(, k)] -> [NS, W * Asub(, k)]
+            return class_major(x, NS).reshape((NS, W * Asub) + x.shape[2:])
+
+        def unst(x):                           # [NS, W * Asub(, k)] -> [W, A(, k)]
+            x = x.reshape((NS, W, Asub) + x.shape[2:])
+            return x.permute((1, 2, 0) + tuple(range(3, x.dim()))).reshape((W, A) + x.shape[3:])
+
         obs = _flat_obs(state.sensor_depth, state.health, state.pos,
                         state.sensor_semantic, state.surrounding, self.obs_dtype)
-        obs4 = obs.reshape(W, Asub, NS, obs.shape[-1])
-        mem4 = state.hidden.reshape(W, Asub, NS, H)
-        alive3 = state.alive.reshape(W, Asub, NS)
-        sp3 = state.species.reshape(W, Asub, NS)
-        a_c, lp_c, v_c, h_c = [], [], [], []
+        m = st(class_masks(state, NS)[0])
         with torch.no_grad():
-            for s in range(NS):
-                mb = (alive3[:, :, s] & (sp3[:, :, s] == s + 1)).reshape(Nc)
-                logits, v, h = policy_forward(
-                    self.models[s], params_list[s], obs4[:, :, s].reshape(Nc, -1),
-                    mem4[:, :, s].reshape(Nc, H), self.cd)
-                v_c.append(torch.where(mb, v, 0.0).reshape(W, Asub))
-                if not sample:
-                    continue
-                a = rng.categorical(rng.fold_in(key, s), logits)
-                lp = torch.gather(F.log_softmax(logits, dim=-1), 1, a[:, None])[:, 0]
-                a_c.append(torch.where(mb, a, 0).reshape(W, Asub))
-                lp_c.append(torch.where(mb, lp, 0.0).reshape(W, Asub))
-                h_c.append((h * mb[:, None].to(h.dtype)).reshape(W, Asub, H))
-        value = torch.stack(v_c, dim=2).reshape(W, A)
-        if not sample:
-            return None, None, value, None, obs
-        return (torch.stack(a_c, dim=2).reshape(W, A),
-                torch.stack(lp_c, dim=2).reshape(W, A), value,
-                torch.stack(h_c, dim=2).reshape(W, A, H), obs)
+            if self.sac is not None:
+                logits, v, h = policy_forward(self.sac, params, st(obs), st(state.hidden),
+                                              self.cd)
+            else:
+                logits, v, h = (torch.stack(x) for x in zip(*(
+                    policy_forward(model, p, o, mem, self.cd) for model, p, o, mem in
+                    zip(self.models, params, st(obs), st(state.hidden)))))
+            value = unst(torch.where(m, v, 0.0))
+            if not sample:
+                return None, None, value, None, obs
+            if self.sac is not None:
+                a = rng.categorical(rng.fold_in(key, torch.arange(NS, device=key.device)),
+                                    logits)
+            else:
+                a = torch.stack([rng.categorical(rng.fold_in(key, s), logits[s])
+                                 for s in range(NS)])
+            lp = torch.gather(F.log_softmax(logits, dim=-1), -1, a[..., None])[..., 0]
+            new_hidden = unst(h * m[..., None].to(h.dtype))
+        return (unst(torch.where(m, a, 0)), unst(torch.where(m, lp, 0.0)), value,
+                new_hidden, obs)
 
     def pack_records(self, state: WorldState, obs, action, logp, value):
         """One compaction of every (world, class)'s alive rows into `rows`
@@ -235,7 +267,7 @@ class PPOTrainer:
                    - keep.reshape(NS, W * Asub).sum(dim=1)).to(torch.int32)
         return rec, valid.reshape(G * rows), srcrow.reshape(G * rows), dropped
 
-    def rollout(self, state: WorldState, params_list, key):
+    def rollout(self, state: WorldState, params, key):
         """`rollout_len` env steps with the current policies: (state, the key
         left after the T splits, Rollout or RolloutC). Consumes `state`."""
         T, NS, rows = self.T, self.NS, self.rows
@@ -264,7 +296,7 @@ class PPOTrainer:
         recs.update(slot_domain)
         for t in range(T):
             key, k_act = rng.split(key, 2)
-            action, logp, value, new_hidden, obs = self.policy_step(params_list, state, k_act)
+            action, logp, value, new_hidden, obs = self.policy_step(params, state, k_act)
             recs["alive"][t].copy_(state.alive)
             if self.rec_mode:
                 for name, x in zip(("rec", "valid", "srcrow", "dropped"),
@@ -285,11 +317,11 @@ class PPOTrainer:
             recs["next_alive"][t].copy_(state.alive)
         return state, key, (RolloutC if self.rec_mode else Rollout)(**recs)
 
-    def advantages(self, state: WorldState, params_list, key, roll) -> torch.Tensor:
+    def advantages(self, state: WorldState, params, key, roll) -> torch.Tensor:
         """GAE advantages [T, W, A], bootstrapped from the current policy's
         values at the state after the rollout. (JAX draws these values with
         `fold_in(key, 999)`; values do not depend on the key.)"""
-        _, _, last_value, _, _ = self.policy_step(params_list, state, None, sample=False)
+        _, _, last_value, _, _ = self.policy_step(params, state, None, sample=False)
         value_t = roll.value_full if self.rec_mode else roll.value
         return gae(roll.reward, roll.alive, roll.next_alive, value_t, last_value,
                    self.gamma, self.gae_lambda)
@@ -311,85 +343,96 @@ class PPOTrainer:
         return torch.remainder(i * M + c - off, B).reshape(M * mb)
 
     def update_buffers(self, roll, advantages, key):
-        """Per species, (om [M, mb, D + H], action i32, old logp, advantage,
-        return, old value, mask) in minibatch-major order, and its dropped
-        rows [NS]. Advantages are gathered at the recorded source slots;
-        returns = advantage + recorded value."""
-        T, NS, rows, Asub = self.T, self.NS, self.rows, self.Asub
+        """The update's buffers in minibatch-major order: (om [M, mb, D + H],
+        action i32, old logp, advantage, return, old value, mask) per
+        species, or with the stacked trainer one such tuple of [M, NS, mb,
+        ...] buffers (the same rows for species s); and the dropped rows
+        [NS]. Compacted rows are gathered straight from the records, their
+        advantages at the recorded source slots; returns = advantage +
+        recorded value."""
+        T, NS, rows, Asub, M = self.T, self.NS, self.rows, self.Asub, self.M
         W, A = roll.alive.shape[1:]
         D = self.cfg.obs_dim
         B = T * W * rows
         dev = advantages.device
         order = self.minibatch_order(key, B, dev)
 
-        def mbm(x):
-            return x.index_select(0, order).reshape((self.M, B // self.M) + x.shape[1:])
-
-        bufs = []
         if self.rec_mode:
-            K, C = NS * rows, roll.rec.shape[-1]
+            C = roll.rec.shape[-1]
             H = C - D - 1 - (2 if self.cd is None else 6)
-            srcK = roll.srcrow.reshape(T, NS, W, rows).permute(0, 2, 1, 3).reshape(T, W, K)
-            adv5 = torch.gather(advantages, 2, srcK.long()).reshape(T, W, NS, rows)
-            rec5 = roll.rec.reshape(T, NS, W, rows, C)
-            valid5 = roll.valid.reshape(T, NS, W, rows)
-            c0 = D + H + 1                                        # scalar columns
-            for s in range(NS):
-                r = rec5[:, s]
-                if self.cd is None:
-                    lp, vv = r[..., c0].reshape(B), r[..., c0 + 1].reshape(B)
-                else:
-                    lp = sum(r[..., c0 + i].to(f32) for i in range(3)).reshape(B)
-                    vv = sum(r[..., c0 + 3 + i].to(f32) for i in range(3)).reshape(B)
-                ad = adv5[:, :, s].reshape(B)
-                bufs.append(tuple(mbm(x) for x in (
-                    r[..., 0:D + H].reshape(B, D + H), r[..., D + H].to(torch.int32).reshape(B),
-                    lp, ad, ad + vv, vv, valid5[:, s].reshape(B))))
+            # Row b = (t, w, r) of species s is record (t, s, w, r).
+            t, q = order // (W * rows), order % (W * rows)
+            idx = (t * NS + torch.arange(NS, device=dev)[:, None]) * (W * rows) + q
+            idx = idx.reshape(NS, M, B // M).transpose(0, 1)          # [M, NS, mb]
+            rec = roll.rec.reshape(-1, C)[idx]
+            src = roll.srcrow.reshape(-1)[idx].long()
+            tw = (t * W + q // rows).reshape(M, 1, B // M)
+            ad = advantages.reshape(-1)[tw * A + src]
+            c0 = D + H + 1                                          # scalar columns
+            if self.cd is None:
+                lp, vv = rec[..., c0], rec[..., c0 + 1]
+            else:
+                lp = sum(rec[..., c0 + i].to(f32) for i in range(3))
+                vv = sum(rec[..., c0 + 3 + i].to(f32) for i in range(3))
+            bufs = (rec[..., 0:D + H], rec[..., D + H].to(torch.int32), lp, ad, ad + vv, vv,
+                    roll.valid.reshape(-1)[idx])
             dropped = roll.dropped.sum(dim=0)
-        else:
-            returns = advantages + roll.value
+            if self.sac is not None:
+                return bufs, dropped
+            return [tuple(x[:, s] for x in bufs) for s in range(NS)], dropped
 
-            def fl(x, s):
-                x4 = x.reshape((T, W, Asub, NS) + x.shape[3:])
-                return x4[:, :, :, s].reshape((B,) + x.shape[3:])
+        def mbm(x):
+            return x.index_select(0, order).reshape((M, B // M) + x.shape[1:])
 
-            for s in range(NS):
-                obs = _flat_obs(fl(roll.depth, s), fl(roll.health, s), fl(roll.pos, s),
-                                fl(roll.semantic, s), fl(roll.surrounding, s), self.obs_dtype)
-                om = torch.cat([obs, fl(roll.memory, s).to(obs.dtype)], dim=-1)
-                mask = fl(roll.alive, s) & (fl(roll.species, s) == s + 1)
-                bufs.append(tuple(mbm(x) for x in (
-                    om, fl(roll.action, s).to(torch.int32), fl(roll.logp, s),
-                    fl(advantages, s), fl(returns, s), fl(roll.value, s), mask)))
-            dropped = torch.zeros(NS, dtype=torch.int32, device=dev)
-        return bufs, dropped
+        def fl(x, s):
+            x4 = x.reshape((T, W, Asub, NS) + x.shape[3:])
+            return x4[:, :, :, s].reshape((B,) + x.shape[3:])
 
-    def loss(self, s: int, flat: torch.Tensor, picked):
+        returns = advantages + roll.value
+        bufs = []
+        for s in range(NS):
+            obs = _flat_obs(fl(roll.depth, s), fl(roll.health, s), fl(roll.pos, s),
+                            fl(roll.semantic, s), fl(roll.surrounding, s), self.obs_dtype)
+            om = torch.cat([obs, fl(roll.memory, s).to(obs.dtype)], dim=-1)
+            mask = fl(roll.alive, s) & (fl(roll.species, s) == s + 1)
+            bufs.append(tuple(mbm(x) for x in (
+                om, fl(roll.action, s).to(torch.int32), fl(roll.logp, s),
+                fl(advantages, s), fl(returns, s), fl(roll.value, s), mask)))
+        return bufs, torch.zeros(NS, dtype=torch.int32, device=dev)
+
+    def loss(self, model, flat: torch.Tensor, picked):
         """(loss, pg_loss, v_loss, entropy) of one minibatch, each summed
-        over its valid rows and divided by max(their count, 1)."""
+        over its valid rows and divided by max(their count, 1): scalars for a
+        species' `ActorCritic`, [NS] for the stacked net on [NS, mb, ...]
+        rows (advantages normalised per species)."""
         om, a, lp_old, adv, ret, vold, msk = picked
         D, eps = self.cfg.obs_dim, self.clip_eps
         w = msk.to(f32)
-        denom = torch.clamp(w.sum(), min=1.0)
-        mu = torch.sum(adv * w) / denom
-        var = torch.sum((adv - mu) ** 2 * w) / denom
-        adv_n = (adv - mu) * torch.rsqrt(var + 1e-8)
-        logits, v, _ = policy_forward(self.models[s], flat, om[:, :D], om[:, D:], self.cd)
+        denom = torch.clamp(w.sum(dim=-1), min=1.0)
+        mu = torch.sum(adv * w, dim=-1) / denom
+        var = torch.sum((adv - mu[..., None]) ** 2 * w, dim=-1) / denom
+        adv_n = (adv - mu[..., None]) * torch.rsqrt(var + 1e-8)[..., None]
+        logits, v, _ = policy_forward(model, flat, om[..., :D], om[..., D:], self.cd)
         lsm = F.log_softmax(logits, dim=-1)
-        logp = torch.gather(lsm, 1, a.long()[:, None])[:, 0]
+        logp = torch.gather(lsm, -1, a.long()[..., None])[..., 0]
         ratio = torch.exp(logp - lp_old)
         pg = -torch.minimum(ratio * adv_n, torch.clamp(ratio, 1 - eps, 1 + eps) * adv_n)
         v_clip = vold + torch.clamp(v - vold, -eps, eps)
         v_loss = 0.5 * torch.maximum((v - ret) ** 2, (v_clip - ret) ** 2)
         probs = F.softmax(logits, dim=-1)
         ent = -torch.sum(probs * torch.log(torch.clamp(probs, min=1e-12)), dim=-1)
-        pg_s, vl_s, ent_s = torch.sum(pg * w), torch.sum(v_loss * w), torch.sum(ent * w)
+        pg_s = torch.sum(pg * w, dim=-1)
+        vl_s = torch.sum(v_loss * w, dim=-1)
+        ent_s = torch.sum(ent * w, dim=-1)
         loss = (pg_s + self.vf_coef * vl_s - self.ent_coef * ent_s) / denom
         return loss, pg_s / denom, vl_s / denom, ent_s / denom
 
-    def update_species(self, s: int, ts: SpeciesTrainState, bufs):
-        """Species s's `update_epochs x num_minibatches` Adam steps: (new
-        train state, [E * M, 4] losses)."""
+    def updates(self, model, ts: SpeciesTrainState, bufs):
+        """`update_epochs x num_minibatches` Adam steps of one species
+        (`model` its ActorCritic, `bufs` its buffers) or of every species at
+        once (the stacked net and buffers): (new train state, [E * M, 4]
+        losses, [E * M, 4, NS] stacked). Epoch e visits minibatch (i + e) % M
+        at step i with `decorrelate`."""
         params, opt = ts
         losses = []
         for e in range(self.E):
@@ -397,8 +440,8 @@ class PPOTrainer:
                 cls = (i + e) % self.M if self.decorrelate else i
                 flat = params.detach().requires_grad_(True)
                 with torch.enable_grad():
-                    out = self.loss(s, flat, tuple(x[cls] for x in bufs))
-                    (grad,) = torch.autograd.grad(out[0], flat)
+                    out = self.loss(model, flat, tuple(x[cls] for x in bufs))
+                    (grad,) = torch.autograd.grad(out[0].sum(), flat)
                 params, opt = self.optimizer.update(grad, opt, params)
                 losses.append(torch.stack([x.detach() for x in out]))
         return SpeciesTrainState(params, opt), torch.stack(losses)
@@ -418,26 +461,37 @@ class PPOTrainer:
         return alive4.sum(dim=(0, 1, 2)), reward
 
     def ppo_iteration(self, state: WorldState, train_states, key):
-        params_list = [ts.params for ts in train_states]
-        state, key, roll = self.rollout(state, params_list, key)
-        advantages = self.advantages(state, params_list, key, roll)
-        sp_bufs, dropped = self.update_buffers(roll, advantages, key)
+        stacked = self.sac is not None
+        params = train_states.params if stacked else [ts.params for ts in train_states]
+        state, key, roll = self.rollout(state, params, key)
+        advantages = self.advantages(state, params, key, roll)
+        bufs, dropped = self.update_buffers(roll, advantages, key)
         count, reward = self.population(roll)
         T, W = roll.alive.shape[:2]
         NS = self.NS
         del roll, advantages                      # the buffers hold what the update needs
-        new_ts, metrics = [], {}
+        if stacked:
+            new_ts, losses = self.updates(self.sac, train_states, bufs)
+            mean = losses.mean(dim=0)                                    # [4, NS]
+        else:
+            new_ts, means = [], []
+            for s in range(NS):
+                ts, losses = self.updates(self.models[s], train_states[s], bufs[s])
+                bufs[s] = None                    # free the species' buffers
+                new_ts.append(ts)
+                means.append(losses.mean(dim=0))
+            new_ts, mean = tuple(new_ts), torch.stack(means, dim=1)
+        # The jitted JAX iteration divides by T as a product with the f32
+        # reciprocal (XLA's rewrite of a division by a constant).
+        inv_t = const(1.0 / T, f32, state.alive.device)
+        metrics = {}
         for s in range(NS):
-            ts, losses = self.update_species(s, train_states[s], sp_bufs[s])
-            sp_bufs[s] = None                     # free the species' buffers
-            new_ts.append(ts)
-            mean = losses.mean(dim=0)
-            values = (mean[0], mean[1], mean[2], mean[3], count[s] / T, reward[s] / T,
-                      dropped[s])
+            values = (mean[0, s], mean[1, s], mean[2, s], mean[3, s], count[s] * inv_t,
+                      reward[s] * inv_t, dropped[s])
             for name, v in zip(PER_SPECIES_METRICS, values):
                 metrics[f"species_{s + 1}_{name}"] = v
         metrics["env_steps"] = const(float(T * W), f32, state.alive.device)
-        return state, tuple(new_ts), metrics
+        return state, new_ts, metrics
 
 
 def make_ppo_trainer(models: Sequence[ActorCritic], cfg: EnvConfig,
@@ -454,12 +508,18 @@ def make_ppo_trainer(models: Sequence[ActorCritic], cfg: EnvConfig,
     metrics) collects `rollout_len` env steps and takes `update_epochs x
     num_minibatches` clipped-surrogate updates per species. The returned
     `PPOTrainer` also exposes the stages (rollout, advantages, buffers,
-    updates). `use_kernels` stands for the JAX `use_pallas`."""
-    if stacked:
-        raise NotImplementedError("the species-stacked PPO update is not ported yet")
-    if optimizer is None:
-        optimizer = make_ppo_optimizer(lr, max_grad_norm)
+    updates). `use_kernels` stands for the JAX `use_pallas`.
+
+    stacked=True trains every species through one `StackedActorCritic`
+    (learner slots required): `train_states` is then the one stacked state
+    (`a2c.init_stacked_train_state`), and the default optimizer
+    `make_stacked_ppo_optimizer`."""
     trainer = PPOTrainer(models, cfg, optimizer, rollout_len, num_minibatches,
                          update_epochs, clip_eps, gamma, gae_lambda, vf_coef, ent_coef,
-                         use_kernels, compute_dtype, learner_slots_per_class, decorrelate)
+                         use_kernels, compute_dtype, learner_slots_per_class, decorrelate,
+                         stacked)
+    if optimizer is None:
+        optimizer = (make_stacked_ppo_optimizer(trainer.sac, lr, max_grad_norm) if stacked
+                     else make_ppo_optimizer(lr, max_grad_norm))
+        trainer.optimizer = optimizer
     return trainer, optimizer

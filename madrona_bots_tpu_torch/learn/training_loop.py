@@ -14,8 +14,17 @@ best metric, as in the JAX CLI), and the FPS report. `--create_universe
 package restores the other's. Runs on CUDA unless `--device cpu` is given.
 An epoch's metrics leave the card as one stacked tensor, one copy per epoch.
 
-Not ported yet, and refused with an error: `--stacked`, `--use_mesh` and
-`--ticks_per_block` > 1.
+`--stacked` trains the four species as one species-stacked net
+(`models/stacked.py`; A2C and PPO; `--learner_slots` defaults to 12 there).
+Checkpoints stay per species, so one universe directory serves loop and
+stacked runs of either package.
+
+`--ticks_per_block K > 1` runs K ticks (iterations) between host syncs
+(`make_block`): their metrics leave the card as one [K, M] tensor, the best
+A2C losses are tracked on the card with snapshots of the improving tick's
+train state, and the files are written once a block.
+
+Not ported yet, and refused with an error: `--use_mesh`.
 """
 
 from __future__ import annotations
@@ -35,9 +44,11 @@ from madrona_bots_tpu_torch.learn.a2c import (SpeciesTrainState, make_optimizer,
                                               make_train_tick, stack_metrics)
 from madrona_bots_tpu_torch.learn.ckpt import CheckpointManager
 from madrona_bots_tpu_torch.learn.metrics import MetricsLogger
-from madrona_bots_tpu_torch.learn.ppo import make_ppo_optimizer, make_ppo_trainer
+from madrona_bots_tpu_torch.learn.ppo import (make_ppo_optimizer, make_ppo_trainer,
+                                              make_stacked_ppo_optimizer)
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
 from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+from madrona_bots_tpu_torch.models.stacked import StackedActorCritic
 
 BEST_METRICS = ("actor_loss", "critic_loss", "total_loss")
 
@@ -48,11 +59,59 @@ def construct_run_name(args) -> str:
 
 
 def _refuse_unported(args) -> None:
-    for on, what in ((args.stacked, "--stacked"), (args.use_mesh, "--use_mesh"),
-                     (args.ticks_per_block > 1, "--ticks_per_block > 1")):
-        if on:
-            raise NotImplementedError(f"{what} is not ported to madrona_bots_tpu_torch "
-                                      "yet; run the JAX package's CLI for it")
+    if args.use_mesh:
+        raise NotImplementedError("--use_mesh is not ported to madrona_bots_tpu_torch "
+                                  "yet; run the JAX package's CLI for it")
+
+
+def _tree_where(cond: torch.Tensor, a, b):
+    """`torch.where(cond, a, b)` over the tensors of two train states."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond, a, b)
+    return type(a)(*(_tree_where(cond, x, y) for x, y in zip(a, b)))
+
+
+def make_block(tick, ticks: int, num_species: int, ts_view, track_best: bool):
+    """The block of `--ticks_per_block`: block(state, train_states, key,
+    best_vals [3, NS]) -> (state, train_states, metrics [ticks, M] f32 in
+    sorted key order, best values [3, NS], snapshots, best tick index [3,
+    NS] int32, -1 where nothing improved; the metric names). One split of
+    `key` a tick, `k, sub = split(k)`, as the JAX block's scan does; no host
+    sync inside. With `track_best` each tracked A2C loss (`BEST_METRICS`)
+    of each species is kept on the card below `best_vals`, and snapshots[m][s]
+    holds `ts_view(train_states, s)` as of the tick that improved it (PPO
+    has no such metric). Consumes `state`."""
+    NM = len(BEST_METRICS)
+
+    def block(state, tstates, key, best_vals):
+        # Train states are never written in place, so a snapshot holds
+        # references until a tick improves on it.
+        snaps = ([[ts_view(tstates, sp) for sp in range(num_species)]
+                  for _ in range(NM)] if track_best else [])
+        bidx = torch.full((NM, num_species), -1, dtype=torch.int32, device=best_vals.device)
+        bv = best_vals
+        rows, names = [], None
+        k = key
+        for i in range(ticks):
+            k, sub = rng.split(k, 2)
+            state, tstates, m = tick(state, tstates, sub)
+            if names is None:
+                names = sorted(m)
+            if track_best:
+                v = torch.stack([torch.stack([m[f"species_{sp + 1}_{mn}"].to(torch.float32)
+                                              for sp in range(num_species)])
+                                 for mn in BEST_METRICS])
+                better = v < bv
+                bv = torch.where(better, v, bv)
+                bidx = torch.where(better, i, bidx)
+                for mi in range(NM):
+                    for sp in range(num_species):
+                        snaps[mi][sp] = _tree_where(better[mi, sp], ts_view(tstates, sp),
+                                                    snaps[mi][sp])
+            rows.append(torch.stack([m[n].to(torch.float32) for n in names]))
+        return state, tstates, torch.stack(rows), bv, snaps, bidx, names
+
+    return block
 
 
 def train(args):
@@ -75,8 +134,13 @@ def train(args):
     ckpt = CheckpointManager(base_ckpt_dir, restore=True)
     gen = SpeciesNetGenerator(args.obs_dim, args.action_dim, args.hidden_dim,
                               args.memory_dim, seed=args.seed)
-    # The optimizer defines the checkpoint's Adam state; both have the leaves
-    # (count, mu, nu).
+    if args.stacked and args.learner_slots is None:
+        # The stacked update trains on compacted learner rows; 12 slots a
+        # class cover typical populations with no row dropped.
+        args.learner_slots = 12
+        print("--stacked: defaulting --learner_slots to 12")
+    # Checkpoints are always per species: the per-species optimizer defines
+    # the checkpoint's Adam state; both have the leaves (count, mu, nu).
     optimizer = make_ppo_optimizer(args.lr) if args.algo == "ppo" else make_optimizer(args.lr)
     models, tstates, start_epochs = [], [], []
     init_key = rng.key(args.seed, dev)
@@ -100,30 +164,56 @@ def train(args):
         tstates.append(SpeciesTrainState(params, opt_state))
     tstates = tuple(tstates)
     compute_dtype = {"f32": None, "bf16": torch.bfloat16}[args.compute_dtype]
+
+    sac = None
+    if args.stacked:
+        # Stack the restored parameters and Adam moments once (an exact
+        # resume); the stacked PPO optimizer clips per species.
+        sac = StackedActorCritic(models)
+        tstates = SpeciesTrainState(sac.stack_params([ts.params for ts in tstates]),
+                                    sac.stack_opt_state([ts.opt_state for ts in tstates]))
+        if args.algo == "ppo":
+            optimizer = make_stacked_ppo_optimizer(sac, args.lr)
+
+    def species_states(ts):
+        """Per-species (params, opt_state) views for checkpointing."""
+        if sac is None:
+            return ts
+        return [SpeciesTrainState(p, o) for p, o in
+                zip(sac.unstack_params(ts.params), sac.unstack_opt_state(ts.opt_state))]
+
     if args.algo == "ppo":
         tick, _ = make_ppo_trainer(models, cfg, rollout_len=args.rollout_len,
                                    gamma=args.gamma, lr=args.lr, optimizer=optimizer,
                                    compute_dtype=compute_dtype,
-                                   learner_slots_per_class=args.learner_slots)
+                                   learner_slots_per_class=args.learner_slots,
+                                   stacked=args.stacked)
     else:
         tick, _ = make_train_tick(models, cfg, lr=args.lr, gamma=args.gamma,
                                   proper_log_probs=args.proper_log_probs,
                                   quirk_compat=args.quirk_compat,
                                   compute_dtype=compute_dtype,
-                                  learner_slots_per_class=args.learner_slots)
+                                  learner_slots_per_class=args.learner_slots,
+                                  stacked=args.stacked)
     state = init_state(cfg, args.seed, dev)
     key = rng.key(args.seed + 1, dev)
 
     best = {m: [float("inf")] * args.num_species for m in BEST_METRICS}
     time_values = []
 
-    def handle_epoch(rel_epoch, host_metrics, dt):
+    def handle_epoch(rel_epoch, host_metrics, dt, track_best: bool = True):
+        """Log one epoch; with track_best=False (block mode) only log: the
+        block tracks the best losses on the card and writes the files."""
         if rel_epoch % args.print_freq == 0 or rel_epoch == 1:
             print("Relative Epoch ", rel_epoch)
         host_metrics["epoch_fps"] = args.num_worlds / dt
+        if not track_best:
+            logger.log(host_metrics)
+            return
+        sps = species_states(tstates)
         for sp in range(args.num_species):
             epoch = start_epochs[sp] + rel_epoch
-            ts = tstates[sp]
+            ts = sps[sp]
             host_metrics[f"species_{sp+1}_learning_rate"] = args.lr
             host_metrics["epoch"] = epoch
             if rel_epoch % args.ckpt_every == 0:
@@ -139,14 +229,59 @@ def train(args):
                               epoch, metric_name=metric, verbose=args.verbose)
         logger.log(host_metrics)
 
-    for rel_epoch in range(1, args.num_epochs + 1):
-        t0 = time.time()
-        key, sub = rng.split(key, 2)
-        state, tstates, metrics = tick(state, tstates, sub)
-        host = stack_metrics(metrics).cpu()          # one copy; waits for the card
-        dt = time.time() - t0
-        time_values.append(dt)
-        handle_epoch(rel_epoch, dict(zip(metrics, host.tolist())), dt)
+    tpb = max(1, args.ticks_per_block)
+    if tpb == 1:
+        for rel_epoch in range(1, args.num_epochs + 1):
+            t0 = time.time()
+            key, sub = rng.split(key, 2)
+            state, tstates, metrics = tick(state, tstates, sub)
+            host = stack_metrics(metrics).cpu()          # one copy; waits for the card
+            dt = time.time() - t0
+            time_values.append(dt)
+            handle_epoch(rel_epoch, dict(zip(metrics, host.tolist())), dt)
+    else:
+        # Under --stacked a species' view is the whole stacked state,
+        # unstacked to that species only when its file is written.
+        track_best = args.algo == "a2c"
+        block = make_block(tick, tpb, args.num_species,
+                           (lambda ts, sp: ts) if args.stacked else (lambda ts, sp: ts[sp]),
+                           track_best)
+        rel_epoch = 0
+        while rel_epoch < args.num_epochs:
+            block_start = rel_epoch
+            t0 = time.time()
+            key, sub = rng.split(key, 2)
+            best_in = torch.tensor([best[m] for m in BEST_METRICS], dtype=torch.float32,
+                                   device=dev)
+            state, tstates, ms, bv, snaps, bidx, names = block(state, tstates, sub, best_in)
+            host_stack = ms.cpu()                        # one [tpb, M] copy
+            dt = (time.time() - t0) / tpb
+            for row in host_stack.tolist():
+                rel_epoch += 1
+                time_values.append(dt)
+                handle_epoch(rel_epoch, dict(zip(names, row)), dt, track_best=False)
+                if rel_epoch >= args.num_epochs:
+                    break
+            # One save pass a block: latest (the block's end) and each best
+            # that improved, from the snapshot of its improving tick.
+            sps = species_states(tstates)
+            for sp in range(args.num_species):
+                ckpt.save(models[sp], sps[sp].params, sps[sp].opt_state, f"species_{sp+1}",
+                          start_epochs[sp] + rel_epoch, metric_name="latest",
+                          verbose=args.verbose)
+            if track_best:
+                bv_h, bidx_h = bv.cpu().tolist(), bidx.cpu().tolist()
+                for mi, metric in enumerate(BEST_METRICS):
+                    for sp in range(args.num_species):
+                        if bv_h[mi][sp] < best[metric][sp]:
+                            best[metric][sp] = bv_h[mi][sp]
+                            epoch = start_epochs[sp] + block_start + bidx_h[mi][sp] + 1
+                            snap = snaps[mi][sp]
+                            if sac is not None:
+                                snap = species_states(snap)[sp]
+                            ckpt.save(models[sp], snap.params, snap.opt_state,
+                                      f"species_{sp+1}", epoch, metric_name=metric,
+                                      verbose=args.verbose)
 
     if time_values:
         avg = (float(np.mean(time_values[1:])) if len(time_values) > 1
@@ -192,7 +327,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--ckpt_every', type=int, default=1)
     parser.add_argument('--print_freq', type=int, default=10)
     parser.add_argument('--ticks_per_block', type=int, default=1,
-                        help='not ported yet: only 1 is accepted')
+                        help='run N ticks per host sync (one metrics copy a '
+                             'block, best tracking on the card)')
     parser.add_argument('--use_mesh', action='store_true', help='not ported yet')
     parser.add_argument('--compute_dtype', choices=['f32', 'bf16'],
                         default='f32', help='forward-pass precision')
@@ -205,7 +341,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help='cap learner rows per (world, species) via '
                              'on-device compaction; None trains on all '
                              'padded slots')
-    parser.add_argument('--stacked', action='store_true', help='not ported yet')
+    parser.add_argument('--stacked', action='store_true',
+                        help='train all species through one species-stacked '
+                             'batched net (models/stacked.py), A2C or PPO; '
+                             'checkpoints stay per species. Implies '
+                             '--learner_slots (default 12)')
     parser.add_argument('--device', type=str, default=None,
                         help="torch device; default CUDA (raises without a card); "
                              "'cpu' runs the kernels' plain versions")

@@ -205,12 +205,13 @@ def compute_loss(action_log_probs, reward, prev_v, new_v, gamma: float = 1.0,
                  mask=None):
     """The TD(0) loss, masked for padded slots: advantage = r + gamma V(s')
     - V(s) with both values detached; actor = -sum(logp * adv); critic =
-    SmoothL1(reward, V(s_prev)), mean over the mask."""
+    SmoothL1(reward, V(s_prev)), mean over the mask. Sums run over the last
+    axis, so rows [NS, N] give one loss per species."""
     if mask is None:
         mask = torch.ones_like(reward)
     adv = reward + gamma * new_v.detach() - prev_v.detach()
-    actor_loss = -torch.sum(action_log_probs * adv * mask)
+    actor_loss = -torch.sum(action_log_probs * adv * mask, dim=-1)
     diff = reward - prev_v
     huber = torch.where(diff.abs() < 1.0, 0.5 * diff * diff, diff.abs() - 0.5)
-    critic_loss = torch.sum(huber * mask) / torch.clamp(mask.sum(), min=1.0)
+    critic_loss = torch.sum(huber * mask, dim=-1) / torch.clamp(mask.sum(dim=-1), min=1.0)
     return actor_loss, critic_loss

@@ -12,8 +12,9 @@ module reproduces jax 0.9.0 with `jax_threefry_partitionable=True`:
 * `randint` draws two words per value from the split keys (0, 0) and (0, 1)
   and folds them into the span as jax's `_randint` does
 * `split(key, n)[i]` = `fold_in(key, i)`; `categorical` is argmax(logits +
-  Gumbel noise) as `jax.random.categorical` draws it (the A2C tick's action
-  sampling, one `fold_in(key, s)` per species)
+  Gumbel noise) as `jax.random.categorical` draws it (the learners' action
+  sampling, one `fold_in(key, s)` per species; with a [NS, 2] key stack it
+  draws all species at once, as the stacked learners' vmapped draw does)
 
 Keys are `[..., 2]` int64 tensors holding uint32 words; all uint32
 arithmetic runs in int64 with `& 0xFFFFFFFF`, so it works on any device and
@@ -119,8 +120,10 @@ def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """`jax.random.categorical(key, logits, axis=-1)`: argmax(gumbel +
-    logits) over the last axis, first index on ties; int64."""
-    return torch.argmax(gumbel(key, logits.shape) + logits, dim=-1)
+    logits) over the last axis, first index on ties; int64. Keys with
+    leading axes [*K, 2] draw `jax.vmap(jax.random.categorical)` over
+    logits [*K, ...]: each key its own slice, as one chain of launches."""
+    return torch.argmax(gumbel(key, logits.shape[key.dim() - 1:]) + logits, dim=-1)
 
 
 def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:

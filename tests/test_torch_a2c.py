@@ -218,10 +218,18 @@ def test_bf16_tick_launches_gather_only_through_wrapper():
     from madrona_bots_tpu_torch import init_state
     state = init_state(cfg, 0, device="cpu")
     tstates = a2c.init_train_states(models, rng.key(0), opt)
+    stick, _ = a2c.make_train_tick(models, cfg, compute_dtype=torch.bfloat16,
+                                   learner_slots_per_class=3, stacked=True)
+    sts = a2c.init_stacked_train_state(models, rng.key(0), opt)
     before = row_gather_cuda.launches
     state, tstates, m = tick(state, tstates, rng.key(1))
+    state, sts, sm = stick(state, sts, rng.key(2))
     assert row_gather_cuda.launches == before
     assert all(np.isfinite(float(v)) for v in m.values())
+    assert list(sm) == list(m)
+    assert all(np.isfinite(float(v)) for v in sm.values())
     assert all(t.params.dtype == torch.float32 for t in tstates)
-    with pytest.raises(NotImplementedError):
+    assert sts.params.dtype == torch.float32
+    # The stacked tick needs learner-slot compaction.
+    with pytest.raises(ValueError, match="compaction"):
         a2c.make_train_tick(models, cfg, stacked=True)

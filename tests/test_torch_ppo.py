@@ -51,6 +51,8 @@ CASES = {
     "bf16_slots": (dict(learner_slots_per_class=3, compute_dtype="bf16"), 2, None),
     "bf16_slots_pack_kernel": (dict(learner_slots_per_class=3, compute_dtype="bf16"), 3, "1"),
     "f32_fixed_order_2_epochs": (dict(decorrelate=False, update_epochs=2), 4, None),
+    # Epoch e visits minibatch (i + e) % M after the key-derived roll.
+    "f32_decorrelated_2_epochs": (dict(decorrelate=True, update_epochs=2), 5, None),
 }
 # Tolerances. f32: parameters within 1e-6 where the JAX first moment is at
 # least 1e-7 (a well-conditioned Adam step) and within 2 lr everywhere (a
@@ -335,23 +337,30 @@ def jax_arrays_of(state):
 
 def test_cpu_iteration_launches_no_kernel_and_refuses_stacked():
     """On CPU tensors the bf16 record pack runs the gather's plain version
-    through the kernel wrapper, which counts no launch; the stacked update
-    and a batch that does not split into minibatches are refused."""
+    through the kernel wrapper, which counts no launch, in the loop and the
+    stacked trainer; the stacked trainer without learner slots and a batch
+    that does not split into minibatches are refused."""
     cfg = EnvConfig(num_worlds=2, init_agents=16, max_agents=32)
     models = [ActorCritic.from_generator(SpeciesNetGenerator(cfg.obs_dim, 6, 16,
                                                              cfg.hidden_state_dim, seed=0))
               for _ in range(4)]
     it, opt = ppo.make_ppo_trainer(models, cfg, rollout_len=2, num_minibatches=2,
                                    compute_dtype=torch.bfloat16, learner_slots_per_class=3)
-    from madrona_bots_tpu_torch.learn.a2c import init_train_states
+    sit, sopt = ppo.make_ppo_trainer(models, cfg, rollout_len=2, num_minibatches=2,
+                                     compute_dtype=torch.bfloat16, learner_slots_per_class=3,
+                                     stacked=True)
+    from madrona_bots_tpu_torch.learn.a2c import init_stacked_train_state, init_train_states
     tstates = init_train_states(models, rng.key(0), opt)
+    sts = init_stacked_train_state(models, rng.key(0), sopt)
     before = row_gather_cuda.launches
     state, tstates, m = it(init_state(cfg, 0, device="cpu"), tstates, rng.key(1))
+    state, sts, sm = sit(state, sts, rng.key(2))
     assert row_gather_cuda.launches == before
     assert all(np.isfinite(float(v)) for v in m.values())
+    assert list(sm) == list(m) and all(np.isfinite(float(v)) for v in sm.values())
     assert all(t.params.dtype == torch.float32 for t in tstates)
-    assert int(state.step_count) == 2
-    with pytest.raises(NotImplementedError):
+    assert int(state.step_count) == 4 and int(sts.opt_state.count) == 2
+    with pytest.raises(ValueError, match="compaction"):
         ppo.make_ppo_trainer(models, cfg, stacked=True)
     with pytest.raises(ValueError, match="minibatches"):
         ppo.make_ppo_trainer(models, cfg, rollout_len=3, num_minibatches=5)

@@ -1,7 +1,7 @@
 """The port's training CLI on the CPU: create a universe, train, restore
 and go on (A2C and PPO); the same universe and metric names as the JAX
-package's CLI; PPO universes load in either package; unported modes
-refused."""
+package's CLI; PPO universes load in either package; the unported mode
+(--use_mesh) refused. Stacked and block modes: tests/test_torch_block.py."""
 
 import json
 import os
@@ -74,8 +74,7 @@ def test_universe_and_metric_keys_match_jax_cli(port_run, tmp_path):
     assert set(metric_rows(d, "u")[0]) == set(metric_rows(t, "u")[0])
 
 
-@pytest.mark.parametrize("flags", [["--algo", "ppo", "--stacked"], ["--stacked"],
-                                   ["--use_mesh"], ["--ticks_per_block", "4"]])
+@pytest.mark.parametrize("flags", [["--use_mesh"]])
 def test_unported_modes_refused(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(BASE + ["--device", "cpu", "--model_save_dir", str(tmp_path),
