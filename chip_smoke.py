@@ -1,6 +1,7 @@
 """Drive the PyTorch port's world rollout, A2C training and PPO (per species
-and species-stacked, tick by tick and in blocks) on one CUDA card and check
-them.
+and species-stacked, tick by tick and in blocks), its SimManager surface and
+the drivers built on it (legacy drivers, viewers, test driver, profiler) on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -51,11 +52,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      BENCH_SCAN), best tracking on, loop and stacked: 16 launches of each
      kernel a block, ms per tick against the per-tick CLI loop, in
      alternation;
+  6f. the SimManager (`api/manager.py`) at 8192 x 128, 32 initial agents:
+     8 warm-up and 32 timed steps, each writing random one-hot actions
+     through `action_tensor().to_torch()`, reading the 12 getters and
+     shifting the observations, then 32 without the getters (ms a step by
+     CUDA events; one systems and one raycast launch a step); every export
+     against a gather of the state at a permutation built on the host with
+     numpy; 8 steps on the kernel and on the plain path agree in every
+     export (`surrounding` within its tolerance);
   7. reference checks on small inputs: the kernel path on the card against
      the plain path on the CPU (world steps, an f32 train tick and an f32
      PPO iteration, each also stacked), stacked against loop on the card
-     (the same integer trajectory), and the 50-step digests of
-     tests/golden_trajectory.json (recorded from the JAX package);
+     (the same integer trajectory), the 50-step digests of
+     tests/golden_trajectory.json (recorded from the JAX package), and
+     SimManager(0, 4, 42, 32) on the card against the CPU for 16 steps with
+     set_action write-backs (every export);
   8. the training CLI as a subprocess at --num_worlds 8, A2C and PPO
      (--rollout_len 4), each also --stacked (A2C with --ticks_per_block 4):
      create a universe, then restore it;
@@ -69,12 +80,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      sampled before and after; where a rollout tick's, a train tick's and a
      PPO iteration's time goes, and a profiled tick's (iteration's) kernel
      count and idle share; then a profiled stacked tick and stacked PPO
-     iteration.
+     iteration, and a profiled manager step.
+  10. after every trace (traces taken after it lose kernel events): the
+     legacy headless driver (`learn/env.py`) as a subprocess at 2048
+     worlds, hidden 128, 32 epochs (its simulator FPS), and one f32
+     `env_app` frame at 4 worlds on the card against the CPU; the stdin test
+     driver (1 world) fed w, f, q and the web viewer (4 worlds, /state and
+     /step over 127.0.0.1) in this process with their kernel launches
+     counted; `learn.app` and `learn.env_app` for 3 headless epochs where
+     matplotlib imports (else a `[viz] frames skipped` line); `tools.prof`
+     at 8192 x 128.
 
 Prints a `kernels` JSON line (each row's `launches` from its main path's
 run, `ppo_launches` in a PPO iteration at the bench shape,
 `stacked_launches` in a stacked tick, `stacked_ppo_launches` in a stacked
-PPO iteration), the card's
+PPO iteration, `manager_launches` in the 32 timed manager steps (rows
+systems and raycast), `driver_launches` in the 4-world web viewer's and the
+1-world test driver's two steps (rows raycast_packed and raycast_blocked)),
+the card's
 name and power limit, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the package beside it. Timings use CUDA events; a
 kernel's time (`ms`) is the median of 5 batches of launches back to back,
@@ -84,8 +107,11 @@ time of one wrapper call (`host_ms`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -109,6 +135,8 @@ PPO_ITERS = 4
 STACKED_TICKS, STACKED_ROUNDS = 8, 3   # stacked ticks counted; loop / stacked rounds
 STACKED_PPO_ROUNDS = 2
 BLOCK, BLOCK_ROUNDS = 16, 2      # bench.py's train BENCH_SCAN: 16 ticks a block
+MGR_WARM, MGR_STEPS, MGR_CHECK = 8, 32, 8   # manager steps: warm-up, timed, kernel vs plain
+LEGACY_WORLDS, LEGACY_EPOCHS = 2048, 32     # learn/env.py's width; 32 of its 100 epochs
 LR = 3e-4
 DEVICE = "cuda"
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -330,6 +358,9 @@ def main() -> int:
     sppo = stacked_ppo_phase(cfg, dev, ppo_run)
     block_phase(cfg, train, strain)
 
+    # ---- 6f. the SimManager at the bench shape ----
+    mgr_run = manager_phase(dev, gen)
+
     # ---- 7. reference checks on small inputs ----
     small = EnvConfig(num_worlds=4, init_agents=32, max_agents=64)
     rng = np.random.default_rng(11)
@@ -353,6 +384,7 @@ def main() -> int:
     reference_train_tick(dev)
     reference_ppo(dev)
     reference_stacked(dev)
+    reference_manager(dev)
 
     # ---- 8. the training CLI ----
     cli_phase()
@@ -400,6 +432,8 @@ def main() -> int:
                           ("stacked_launches", strain["per_tick"]),
                           ("stacked_ppo_launches", sppo["per_iteration"])):
             k[name] = per[kernel_of[k["name"]]] if k["name"] in kernel_of else 0
+        k["manager_launches"] = (mgr_run["launches"][kernel_of[k["name"]]]
+                                 if k["name"] in ("systems", "raycast") else 0)
         k["share"] = k["bound_ms"] / k["ms"]
         k.update(usage.get(os.path.basename(k["source"]),
                            {"registers": None, "spill_bytes": None}))
@@ -411,7 +445,8 @@ def main() -> int:
         log(f"[time] {k['name']}: {k['ms']:.4f} ms/launch (device {dev_ms}, host "
             f"{k['host_ms']:.4f} ms a call; launches {k['launches']}, {k['ppo_launches']} a PPO "
             f"iteration, {k['stacked_launches']} a stacked tick, {k['stacked_ppo_launches']} a "
-            f"stacked PPO iteration), plain {k['plain_ms']:.3f} ms, "
+            f"stacked PPO iteration, {k['manager_launches']} in {MGR_STEPS} manager steps), "
+            f"plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}, share {k['share']:.3f}){lib}; "
             f"{k['registers']} registers, {k['spill_bytes']} spill bytes")
     log(f"[clocks] after the kernel times: {smi_sample()}")
@@ -421,6 +456,19 @@ def main() -> int:
     train_where(train, cfg)
     ppo_where(ppo_run, cfg)
     stacked_where(strain, sppo)
+    manager_where(mgr_run)
+    del mgr_run
+
+    # ---- 10. the legacy drivers, the viewers, the test driver, tools.prof ----
+    # After every profiler trace (PERF.md §7: traces in one process lost
+    # kernel events after some of the phases before them).
+    legacy_phase(dev)
+    drivers = drivers_phase(dev)
+    for k in kernels:
+        k["driver_launches"] = {"raycast_packed": drivers["four_worlds"]["raycast"],
+                                "raycast_blocked": drivers["one_world"]["raycast"]}.get(k["name"], 0)
+    log("[drivers] raycast launches in the drivers' 2 steps by kernel row: "
+        + json.dumps({k["name"]: k["driver_launches"] for k in kernels}))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1610,10 +1658,8 @@ def cli_phase(flags=(), label: str = "") -> None:
         save = os.path.join(tmp, "ckpts")
         base = ([sys.executable, "-m", "madrona_bots_tpu_torch.learn.training_loop",
                  "--num_worlds", "8", "--hidden_dim", "32", "--universe_id", "smoke",
-                 "--model_save_dir", save] + list(flags)
-                + ([] if DEVICE == "cuda" else ["--device", DEVICE]))
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+                 "--model_save_dir", save] + list(flags) + device_flag())
+        env = subprocess_env()
         outs = []
         for extra in (["--num_epochs", "3", "--create_universe"], ["--num_epochs", "2"]):
             t0 = time.perf_counter()
@@ -1633,6 +1679,386 @@ def cli_phase(flags=(), label: str = "") -> None:
     log(f"[cli]{''.join(' ' + w for w in (label, *flags) if w)} create (3 epochs) "
         f"{outs[0][0]:.1f} s, {outs[0][1]}; restore (2 epochs) {outs[1][0]:.1f} s, "
         f"{outs[1][1]}; latest_model_epoch_5 for 4 species")
+
+
+MANAGER_GETTERS = ("depth", "semantic", "reward", "position", "health", "surrounding",
+                   "action", "stats", "hidden_state")
+
+
+def manager_getters(mgr, prev=(False, True)) -> dict:
+    """The SimManager's exports as its device tensors: the 12 getters
+    (species_count, done, sensor_index and nine that also take is_prev),
+    each of the nine for every is_prev in `prev`."""
+    out = {"species_count": mgr.species_count_tensor().to_torch(),
+           "done": mgr.done_tensor().to_torch(),
+           "sensor_index": mgr.sensor_index_tensor().to_torch()}
+    for p in prev:
+        for name in MANAGER_GETTERS:
+            out[f"{name}_{int(p)}"] = getattr(mgr, f"{name}_tensor")(p).to_torch()
+    return out
+
+
+def host_exports(state, num_species):
+    """(exports, species starts) built on the host with numpy from one copy
+    of `state`, in the order of the JAX package's numpy compaction
+    (madrona_bots_tpu/utils/native.py:129-140): species-major, ascending
+    flat index within a species."""
+    from madrona_bots_tpu_torch.env.state import state_to_numpy
+
+    st = state_to_numpy(state)
+    alive = st["alive"].reshape(-1)
+    sp = st["species"].reshape(-1).astype(np.int64)
+    flat = np.arange(alive.size)
+    key = np.where(alive, sp * alive.size + flat, np.iinfo(np.int64).max)
+    perm = np.argsort(key, kind="stable")[: int(alive.sum())]
+    counts = np.bincount(sp[perm], minlength=num_species + 1)[1:]
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    inv = np.full(alive.size, -1, np.int32)
+    inv[perm] = np.arange(perm.size, dtype=np.int32)
+
+    def rows(f):
+        return st[f].reshape((alive.size,) + st[f].shape[2:])[perm]
+
+    out = {"species_count": st["species_counts"],
+           "done": np.zeros((perm.size, 1), np.int32),
+           "sensor_index": inv[np.flatnonzero(alive)][:, None]}
+    for p in (0, 1):
+        pre = "prev_" if p else ""
+        out.update({f"depth_{p}": rows(pre + "sensor_depth"),
+                    f"semantic_{p}": rows(pre + "sensor_semantic"),
+                    f"reward_{p}": rows(pre + "reward")[:, None],
+                    f"position_{p}": rows(pre + "pos"),
+                    f"health_{p}": rows(pre + "health")[:, None].astype(np.float32),
+                    f"surrounding_{p}": rows(pre + "surrounding"),
+                    f"action_{p}": rows(pre + "action"),
+                    f"stats_{p}": rows(pre + "stats"),
+                    f"hidden_state_{p}": rows(pre + "hidden")})
+    return out, starts
+
+
+def exports_mismatch(got: dict, want: dict) -> dict:
+    """{export: elements that differ} between two export dicts (torch or
+    numpy values); `surrounding_*` also counted outside the surrounding
+    tolerance (key `*_outside_tol`). Dtype or shape differences count every
+    element."""
+    bad = {}
+    for k, w in want.items():
+        g, w = (np.ascontiguousarray(x.cpu().numpy() if isinstance(x, torch.Tensor) else x)
+                for x in (got[k], w))
+        if g.dtype != w.dtype or g.shape != w.shape:
+            bad[k] = max(g.size, w.size, 1)
+            continue
+        n = int((g.view(np.uint8) != w.view(np.uint8)).reshape(g.shape + (-1,)).any(-1).sum()) \
+            if g.size else 0
+        if n:
+            bad[k] = n
+        if k.startswith("surrounding"):
+            out = int((~np.isclose(g, w, rtol=SURR_RTOL, atol=SURR_ATOL)).sum())
+            if out:
+                bad[k + "_outside_tol"] = out
+    return bad
+
+
+def exact_except_surrounding(bad: dict) -> bool:
+    """No export differs but `surrounding` in bits inside its tolerance."""
+    return all(k.startswith("surrounding") and not k.endswith("_outside_tol")
+               for k in bad)
+
+
+def manager_phase(dev, gen) -> dict:
+    """[manager]: the SimManager at 8192 x 128 (32 initial agents). Each step
+    writes random one-hot actions through `action_tensor().to_torch()`,
+    steps, reads the 12 getters (or not) and shifts the observations; ms a
+    step by CUDA events with and without the getters, one systems and one
+    raycast launch a step; every export against a gather of the state at
+    a permutation built on the host with numpy; 8 steps on the kernel path
+    against the plain path. `res["step"]` steps its manager once more
+    (`manager_where` traces it)."""
+    from madrona_bots_tpu_torch.api import SimManager
+
+    acts = [random_actions(gen, dev).reshape(W * A, 6) for _ in range(4)]
+    heavy = [random_actions(gen, dev, heavy=True).reshape(W * A, 6) for _ in range(4)]
+    t0 = time.perf_counter()
+    mgr = SimManager(0, W, 0, INIT, device=dev)
+    init_s = time.perf_counter() - t0
+
+    def write(m, a):
+        buf = m.action_tensor().to_torch()
+        buf.copy_(a[: buf.shape[0]])
+
+    def steps(n, read):
+        for i in range(n):
+            write(mgr, acts[i % 4])
+            mgr.step()
+            if read:
+                manager_getters(mgr, prev=(False,))
+            mgr.shift_observations()
+
+    steps(MGR_WARM, True)
+    res = {"init_s": init_s}
+    for label, read in (("getters", True), ("no_getters", False)):
+        torch.cuda.synchronize()
+        reset_launches()
+        h0 = time.perf_counter()
+        ms = events_ms(lambda: steps(MGR_STEPS, read), MGR_STEPS)
+        host = (time.perf_counter() - h0) * 1e3 / MGR_STEPS
+        launches = read_launches()
+        res[label] = {"ms": ms, "host_ms": host, "launches": launches}
+        log(f"[manager] {MGR_STEPS} steps at {W}x{A} (init {INIT}), {label.replace('_', ' ')}: "
+            f"{ms:.3f} ms/step by events ({W * 1000.0 / ms:.1f} env-steps/s; host clock "
+            f"{host:.3f}), launches {json.dumps(launches)}, alive {mgr.total_num_agents}")
+        check(launches == {"systems": MGR_STEPS, "raycast": MGR_STEPS, "row_gather": 0},
+              f"manager launches ({label}): {launches}")
+    res["launches"] = res["getters"]["launches"]
+
+    write(mgr, heavy[0])
+    mgr.step()
+    want, starts = host_exports(mgr.state, mgr.cfg.num_species)
+    bad = exports_mismatch(manager_getters(mgr), want)
+    n = mgr.total_num_agents
+    log(f"[manager] {len(want)} exports ({n} rows, species starts {starts.tolist()}) against "
+        f"a gather at the host-built numpy permutation: mismatching elements {json.dumps(bad)}")
+    check(not bad and np.array_equal(mgr.species_offsets(), starts)
+          and n == int(starts[-1]), f"manager exports vs host permutation: {bad}")
+    check(0 < n <= W * A, f"manager population {n}")
+    res["rows"] = n
+
+    res["step"] = lambda: steps(1, True)       # kept for the profiled step
+    del want
+
+    mk = SimManager(0, W, 5, INIT, device=dev)
+    mp = SimManager(0, W, 5, INIT, device=dev, use_kernels=False)
+    worst = {}
+    for t in range(MGR_CHECK):
+        for m in (mk, mp):
+            write(m, heavy[t % 4])
+        reset_launches()
+        mp.step()
+        plain_launches = read_launches()
+        mk.step()
+        check(plain_launches == {"systems": 0, "raycast": 0, "row_gather": 0},
+              f"plain manager launched {plain_launches}")
+        check(mk.total_num_agents == mp.total_num_agents,
+              f"manager kernel vs plain, step {t}: rows {mk.total_num_agents} vs "
+              f"{mp.total_num_agents}")
+        bad = exports_mismatch(manager_getters(mk), manager_getters(mp))
+        for k, v in bad.items():
+            worst[k] = max(worst.get(k, 0), v)
+        check(exact_except_surrounding(bad), f"manager kernel vs plain, step {t}: {bad}")
+        if t % 2:
+            mk.shift_observations()
+            mp.shift_observations()
+    log(f"[manager] {MGR_CHECK} steps kernel path vs plain path, every export after each: "
+        f"most elements differing in any step {json.dumps(worst)} (surrounding held within "
+        f"rtol {SURR_RTOL}, atol {SURR_ATOL}); alive {mk.total_num_agents}")
+    del mk, mp
+    return res
+
+
+def manager_where(run) -> None:
+    """A profiled manager step with the getters read (two steps traced):
+    device kernels, busy time and idle share. Taken after every other
+    trace: a manager trace taken first in the process preceded kernel
+    events missing from the later traces."""
+    launches, busy_ms, wall_ms, kern = traced(run["step"], 2)
+    top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:4]
+    log(f"[where] profiled manager step with getters: {launches:.0f} device kernels, device "
+        f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}; "
+        f"against the unprofiled {run['getters']['ms']:.3f} ms: "
+        f"{max(0.0, 1 - busy_ms / run['getters']['ms']):.3f}); top by device time: "
+        + "; ".join(f"{e.key[:40]} {getattr(e, 'self_device_time_total', 0.0) / 2e3:.3f} ms"
+                    for e in top))
+
+
+def reference_manager(dev) -> None:
+    """[manager] reference: SimManager(0, 4, 42, 32) on the card against the
+    same on the CPU, 16 steps of the same actions and hidden writes (with
+    set_action write-backs), every export after each step."""
+    from madrona_bots_tpu_torch.api import SimManager
+
+    mg = SimManager(0, 4, 42, 32, device=dev)
+    mc = SimManager(0, 4, 42, 32, device="cpu")
+    rng = np.random.default_rng(42)
+    worst = {}
+    for t in range(16):
+        n = mc.total_num_agents
+        check(mg.total_num_agents == n, f"manager card vs CPU, step {t}: rows")
+        a = np.zeros((n, 6), np.int32)
+        a[np.arange(n), rng.integers(0, 6, n)] = 1
+        a[:, 4] |= rng.integers(0, 2, n).astype(np.int32)
+        h = rng.standard_normal((n, mc.cfg.hidden_state_dim)).astype(np.float32)
+        for m in (mg, mc):
+            m.action_tensor().to_torch().copy_(torch.from_numpy(a))
+            m.hidden_state_tensor().to_torch().copy_(torch.from_numpy(h))
+            if t % 4 == 1:
+                for row in (0, n // 3, n - 1):
+                    m.set_action(row, forward=1, backward=0, rotate_left=0,
+                                 rotate_right=1, shoot=0, breed=1)
+        mg.step()
+        mc.step()
+        bad = exports_mismatch(manager_getters(mg), manager_getters(mc))
+        for k, v in bad.items():
+            worst[k] = max(worst.get(k, 0), v)
+        check(exact_except_surrounding(bad)
+              and np.array_equal(mg.species_offsets(), mc.species_offsets()),
+              f"manager card vs CPU, step {t}: {bad}")
+        if t % 2:
+            mg.shift_observations()
+            mc.shift_observations()
+    log(f"[manager] reference: SimManager(0, 4, 42, 32) card vs CPU, 16 steps with "
+        f"set_action write-backs: every export equal (most elements differing in any step "
+        f"{json.dumps(worst)}, surrounding within tolerance); alive {mg.total_num_agents}")
+
+
+def subprocess_env() -> dict:
+    """This environment with the repo first on PYTHONPATH."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+
+
+def device_flag() -> list:
+    """The entry points' `--device` flag: none on the card, their default."""
+    return [] if DEVICE == "cuda" else ["--device", DEVICE]
+
+
+def legacy_phase(dev) -> dict:
+    """[legacy]: the legacy headless driver (learn/env.py) as a subprocess at
+    2048 worlds, hidden 128, 32 epochs; then one f32 env_app frame at 4
+    worlds on the card against the CPU."""
+    from madrona_bots_tpu_torch import rng
+    from madrona_bots_tpu_torch.api import SimManager
+    from madrona_bots_tpu_torch.env.state import FIELDS, state_to_numpy
+    from madrona_bots_tpu_torch.learn import env as legacy_env
+    from madrona_bots_tpu_torch.learn import env_app
+
+    cmd = [sys.executable, "-m", "madrona_bots_tpu_torch.learn.env", "--num_worlds",
+           str(LEGACY_WORLDS), "--num_epochs", str(LEGACY_EPOCHS)] + device_flag()
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=REPO, env=subprocess_env(), capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        log(p.stdout[-2000:] + p.stderr[-4000:])
+    check(p.returncode == 0, f"legacy driver exited {p.returncode}")
+    fps = [ln for ln in p.stdout.splitlines() if ln.startswith("Average FPS for simulator")]
+    check(bool(fps), "legacy driver printed no Average FPS line")
+    fps_value = float(fps[0].split(":")[1])
+    check(math.isfinite(fps_value) and fps_value > 0, f"legacy FPS {fps_value}")
+    log(f"[legacy] python -m madrona_bots_tpu_torch.learn.env --num_worlds {LEGACY_WORLDS} "
+        f"--num_epochs {LEGACY_EPOCHS} (hidden 128): {fps[0]}; {wall:.1f} s wall "
+        f"(process start and kernel load included)")
+
+    args = legacy_env.build_parser().parse_args(["--num_worlds", "4", "--seed", "69"])
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        mgr = SimManager(0, 4, 69, 32, device=d)
+        models, opt, params, opt_states = legacy_env.init_models(args, d)
+        env_app.make_train_step(models, opt, params, opt_states, 4,
+                                [rng.key(70, d)])(mgr)
+        runs[d.type] = (state_to_numpy(mgr.state), params, opt_states)
+    (ng, pg, sg), (nc, pc, sc) = runs[dev.type], runs["cpu"]
+    ints = [f for f in FIELDS if ng[f].dtype.kind in "iub"]
+    bad = [f for f in ints if not np.array_equal(ng[f], nc[f])]
+    # The legacy loss sums over rows, so a gradient entry near 1e-6 can be
+    # below the rounding of its sum on either device, and Adam's first step
+    # (lr * g / (|g| + eps)) turns that into up to 2 lr. So the gradient is
+    # held through the first moment (0.1 g) at test_torch_a2c.py's f32
+    # tolerance, and the parameters within 1e-6 where |mu| >= 1e-4 of the
+    # largest |mu| and within 2 lr everywhere.
+    diff = torch.cat([(g.cpu() - c).abs() for g, c in zip(pg, pc)])
+    mu_g = torch.cat([s.mu.cpu() for s in sg])
+    mu_c = torch.cat([s.mu for s in sc])
+    scale = float(mu_c.abs().max())
+    mom_bad = int((~torch.isclose(mu_g, mu_c, rtol=1e-4, atol=1e-4 * scale)).sum())
+    sure = mu_c.abs() >= 1e-4 * scale
+    well = float(diff[sure].max())
+    small = float(diff[mu_c.abs() >= 1e-7].max())
+    log(f"[legacy] f32 env_app frame at 4 worlds, card vs CPU: integer-field mismatches "
+        f"{bad} (actions {int(ng['action'].sum())} set); first moments outside rtol 1e-4, "
+        f"atol 1e-4 x {scale:.3e}: {mom_bad} of {mu_c.numel()}; params max |diff| "
+        f"{float(diff.max()):.3e} ({well:.3e} where |mu| >= 1e-4 x max, {small:.3e} "
+        f"where |mu| >= 1e-7)")
+    check(not bad and mom_bad == 0 and well <= 1e-6 and float(diff.max()) <= 2 * LR,
+          "env_app frame card vs CPU")
+    return {"fps": fps_value, "wall_s": wall}
+
+
+def drivers_phase(dev) -> dict:
+    """[drivers]: the stdin test driver (1 world) fed w, f, q and the web
+    viewer (4 worlds) over 127.0.0.1 in this process, counting their kernel
+    launches; the app and env_app mains as subprocesses where matplotlib
+    imports; tools.prof at 8192 x 128."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    from madrona_bots_tpu_torch.tools import prof, test_driver
+    from madrona_bots_tpu_torch.viz.web import WebViewer, make_server
+
+    reset_launches()
+    out, stdin = io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO("w\nf\nq\n")
+    try:
+        with contextlib.redirect_stdout(out):
+            test_driver.main(device_flag())
+    finally:
+        sys.stdin = stdin
+    one = read_launches()
+    lines = out.getvalue().splitlines()
+    depth = [ln.split() for ln in lines if len(ln.split()) == 32]
+    log(f"[drivers] test_driver (1 world x 16) fed w, f, q: {len(depth)} depth rows, last "
+        f"{' '.join(depth[-1]) if depth else None}; launches {json.dumps(one)}")
+    check(len(depth) == 2 and lines[-1] == "bye"
+          and all(0 <= int(v) <= 255 for row in depth for v in row), "test driver output")
+    check(one == {"systems": 2, "raycast": 2, "row_gather": 0}, f"test driver launches {one}")
+
+    reset_launches()
+    viewer = WebViewer(num_worlds=4, seed=0, init_agents=32, device=dev)
+    srv = make_server(viewer, 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        s0 = json.loads(urllib.request.urlopen(url + "/state", timeout=120).read())
+        s1 = json.loads(urllib.request.urlopen(url + "/step?keys=w", timeout=120).read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    four = read_launches()
+    log(f"[drivers] web viewer (4 worlds x 32): /state step {s0['step']} alive {s0['alive']}, "
+        f"/step?keys=w step {s1['step']} alive {s1['alive']}, {len(s1['agents'])} agents and "
+        f"{len(s1['food'])} food shown; launches {json.dumps(four)}")
+    check(s1["step"] == s0["step"] + 1 and len(s1["depth"]) == 32 and s1["alive"] > 0
+          and all(math.isfinite(a["x"]) and math.isfinite(a["y"]) for a in s1["agents"]),
+          "web viewer snapshots")
+    check(four == {"systems": 2, "raycast": 2, "row_gather": 0}, f"web viewer launches {four}")
+
+    if importlib.util.find_spec("matplotlib") is None:
+        log("[viz] frames skipped: no matplotlib")
+    else:
+        build = os.path.join(REPO, "build")
+        os.makedirs(build, exist_ok=True)
+        for mod, extra in (("app", []), ("env_app", ["--num_worlds", "4"])):
+            with tempfile.TemporaryDirectory(dir=build) as tmp:
+                t0 = time.perf_counter()
+                p = subprocess.run(
+                    [sys.executable, "-m", f"madrona_bots_tpu_torch.learn.{mod}",
+                     "--num_epochs", "3", *extra] + device_flag(),
+                    cwd=tmp, env=dict(subprocess_env(), MPLBACKEND="Agg"),
+                    capture_output=True, text=True, timeout=600)
+                if p.returncode != 0:
+                    log(p.stdout[-2000:] + p.stderr[-4000:])
+                check(p.returncode == 0, f"{mod} exited {p.returncode}")
+                frames = os.listdir(os.path.join(tmp, "viewer_frames"))
+                check(len(frames) >= 1, f"{mod}: no frames")
+                log(f"[viz] learn.{mod} 3 headless epochs: {len(frames)} frames, "
+                    f"{time.perf_counter() - t0:.1f} s wall")
+
+    ms = prof.main([str(W), str(A), "16"])
+    log(f"[drivers] tools.prof {W} {A} 16: {json.dumps(ms)} ms/step")
+    check(all(math.isfinite(v) and v > 0 for v in ms.values()), f"tools.prof {ms}")
+    return {"one_world": one, "four_worlds": four, "prof": ms}
 
 
 def train_where(train, cfg) -> None:

@@ -3,10 +3,13 @@
 The world rollout (init_state, step, shift_observations, construct_obs) with
 the systems step and the raycast sensor as hand-written CUDA kernels
 (`csrc/`), and the per-species A2C learner (`learn/a2c.py`, whose bf16
-learner-row compaction is the row-gather kernel) behind the training CLI
-`python -m madrona_bots_tpu_torch.learn.training_loop`. Entry points run on
-CUDA unless given `device="cpu"`, where the kernels' plain PyTorch versions
-run. Imports torch, never jax.
+learner-row compaction is the row-gather kernel) and PPO behind the training
+CLI `python -m madrona_bots_tpu_torch.learn.training_loop`; the reference's
+`madrona_bots` surface (`madrona_bots.py`: `SimManager` with species-major
+exports built on the card, `ScriptBotsViewer`) with the legacy drivers, the
+viewers and the tools on top of it. Entry points run on CUDA unless given
+`device="cpu"`, where the kernels' plain PyTorch versions run. Imports
+torch, never jax.
 """
 
 from madrona_bots_tpu_torch.config import EnvConfig, RewardSetting

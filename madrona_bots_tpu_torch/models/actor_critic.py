@@ -40,15 +40,40 @@ _ACT = {
 _GATES = {"LSTM": 4, "GRU": 3, "RNN": 1}
 
 
-def param_specs(config: Dict[str, Any]) -> List[Tuple[str, Tuple[int, ...]]]:
-    """(name, shape) of every parameter leaf, in JAX leaf order."""
+def _bound(fan_in: int, device) -> torch.Tensor:
+    return 1.0 / torch.sqrt(torch.tensor(float(fan_in), dtype=torch.float32, device=device))
+
+
+def init_mlp(key: torch.Tensor, head: str, layer_cfgs, out: Dict[str, torch.Tensor]) -> None:
+    """The JAX `_init_mlp(key, layer_cfgs)`: linear layer i's w [in, out]
+    and b from `split(fold_in(key, i), 2)`, U(+-1/sqrt(in)); into `out`
+    under `{head}.{i}.w` / `.b`."""
+    for i, lc in enumerate(layer_cfgs):
+        if lc["type"] != "linear":
+            continue
+        kw, kb = rng.split(rng.fold_in(key, i), 2)
+        fi, fo = lc["in_features"], lc["out_features"]
+        b = _bound(fi, key.device)
+        out[f"{head}.{i}.w"] = rng.uniform(kw, (fi, fo), -b, b)
+        out[f"{head}.{i}.b"] = rng.uniform(kb, (fo,), -b, b)
+
+
+def mlp_specs(heads) -> List[Tuple[str, Tuple[int, ...]]]:
+    """(name, shape) of the linear leaves of `(head, layer_cfgs)` pairs,
+    given in the JAX tree's sorted key order; (b, w) within a layer."""
     specs = []
-    for head, cfg_key in (("actor", "actor"), ("critic", "critic"),
-                          ("feature", "layers")):
-        for i, lc in enumerate(config[cfg_key]):
+    for head, layer_cfgs in heads:
+        for i, lc in enumerate(layer_cfgs):
             if lc["type"] == "linear":
                 specs.append((f"{head}.{i}.b", (lc["out_features"],)))
                 specs.append((f"{head}.{i}.w", (lc["in_features"], lc["out_features"])))
+    return specs
+
+
+def param_specs(config: Dict[str, Any]) -> List[Tuple[str, Tuple[int, ...]]]:
+    """(name, shape) of every parameter leaf, in JAX leaf order."""
+    specs = mlp_specs((("actor", config["actor"]), ("critic", config["critic"]),
+                       ("feature", config["layers"])))
     rc = config["recurrent"]
     din, dh, g = rc["input_dim"], rc["hidden_dim"], _GATES[rc["type"]]
     specs += [("recurrent.bh", (g * dh,)), ("recurrent.bi", (g * dh,)),
@@ -82,54 +107,23 @@ def _recurrent(p: Dict[str, torch.Tensor], kind: str, x, h):
     return torch.sigmoid(io) * torch.tanh(c)
 
 
-class ActorCritic(nn.Module):
-    """logits, value, memory = model(obs, memory[, params])."""
+class FlatParams(nn.Module):
+    """A config-built net whose parameters are named leaves in JAX leaf
+    order (`specs`), registered on the module and cut from or joined into
+    one flat vector."""
 
-    def __init__(self, config: Dict[str, Any], device=None):
+    def __init__(self, config: Dict[str, Any], specs, device=None):
         super().__init__()
         self.config = config
-        self.specs = param_specs(config)
+        self.specs = specs
         self.sizes = [int(torch.Size(s).numel()) for _, s in self.specs]
         self.num_params = sum(self.sizes)
         self.leaves = nn.ParameterList(
             [nn.Parameter(torch.zeros(s, device=device)) for _, s in self.specs])
 
     @classmethod
-    def from_generator(cls, generator, device=None) -> "ActorCritic":
+    def from_generator(cls, generator, device=None):
         return cls(generator.sample_config(), device)
-
-    # ---- parameters ----
-
-    def init(self, key: torch.Tensor) -> List[torch.Tensor]:
-        """The JAX `ActorCritic.init(key)` draw for draw: torch.nn.Linear's
-        U(+-1/sqrt(fan_in)) through the threefry bits of `rng`. Returns the
-        leaves (on the key's device) without touching the module."""
-        kf, kr, ka, kc = rng.split(key, 4)
-        out: Dict[str, torch.Tensor] = {}
-
-        def bound(n):
-            return 1.0 / torch.sqrt(torch.tensor(float(n), dtype=torch.float32,
-                                                 device=key.device))
-
-        for head, k, cfg_key in (("feature", kf, "layers"), ("actor", ka, "actor"),
-                                 ("critic", kc, "critic")):
-            for i, lc in enumerate(self.config[cfg_key]):
-                if lc["type"] != "linear":
-                    continue
-                kw, kb = rng.split(rng.fold_in(k, i), 2)
-                fi, fo = lc["in_features"], lc["out_features"]
-                b = bound(fi)
-                out[f"{head}.{i}.w"] = rng.uniform(kw, (fi, fo), -b, b)
-                out[f"{head}.{i}.b"] = rng.uniform(kb, (fo,), -b, b)
-        rc = self.config["recurrent"]
-        din, dh, g = rc["input_dim"], rc["hidden_dim"], _GATES[rc["type"]]
-        k1, k2 = rng.split(kr, 2)
-        b = bound(dh)
-        out["recurrent.wi"] = rng.uniform(k1, (din, g * dh), -b, b)
-        out["recurrent.wh"] = rng.uniform(k2, (dh, g * dh), -b, b)
-        out["recurrent.bi"] = rng.uniform(rng.fold_in(kr, 2), (g * dh,), -b, b)
-        out["recurrent.bh"] = rng.uniform(rng.fold_in(kr, 3), (g * dh,), -b, b)
-        return [out[name] for name, _ in self.specs]
 
     def unflatten(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """Views of a flat [P] vector as the parameter leaves."""
@@ -137,20 +131,6 @@ class ActorCritic(nn.Module):
 
     def flatten(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.cat([t.reshape(-1) for t in leaves])
-
-    def params_to_jax(self, leaves: Sequence[torch.Tensor] | None = None):
-        """The leaves as the JAX package's nested param dict of numpy arrays
-        (None at activations)."""
-        leaves = list(self.leaves) if leaves is None else leaves
-        byname = {n: t.detach().cpu().numpy() for (n, _), t in zip(self.specs, leaves)}
-        tree: Dict[str, Any] = {}
-        for head, cfg_key in (("feature", "layers"), ("actor", "actor"),
-                              ("critic", "critic")):
-            tree[head] = [{"w": byname[f"{head}.{i}.w"], "b": byname[f"{head}.{i}.b"]}
-                          if lc["type"] == "linear" else None
-                          for i, lc in enumerate(self.config[cfg_key])]
-        tree["recurrent"] = {k: byname[f"recurrent.{k}"] for k in ("wi", "wh", "bi", "bh")}
-        return tree
 
     def params_from_jax(self, tree, device=None) -> List[torch.Tensor]:
         """Leaves from a JAX param tree (nested dict of array-likes)."""
@@ -171,6 +151,51 @@ class ActorCritic(nn.Module):
             for p, t in zip(self.leaves, leaves):
                 p.copy_(t)
 
+    def get_config(self) -> Dict[str, Any]:
+        return self.config
+
+
+class ActorCritic(FlatParams):
+    """logits, value, memory = model(obs, memory[, params])."""
+
+    def __init__(self, config: Dict[str, Any], device=None):
+        super().__init__(config, param_specs(config), device)
+
+    # ---- parameters ----
+
+    def init(self, key: torch.Tensor) -> List[torch.Tensor]:
+        """The JAX `ActorCritic.init(key)` draw for draw: torch.nn.Linear's
+        U(+-1/sqrt(fan_in)) through the threefry bits of `rng`. Returns the
+        leaves (on the key's device) without touching the module."""
+        kf, kr, ka, kc = rng.split(key, 4)
+        out: Dict[str, torch.Tensor] = {}
+        for head, k, cfg_key in (("feature", kf, "layers"), ("actor", ka, "actor"),
+                                 ("critic", kc, "critic")):
+            init_mlp(k, head, self.config[cfg_key], out)
+        rc = self.config["recurrent"]
+        din, dh, g = rc["input_dim"], rc["hidden_dim"], _GATES[rc["type"]]
+        k1, k2 = rng.split(kr, 2)
+        b = _bound(dh, key.device)
+        out["recurrent.wi"] = rng.uniform(k1, (din, g * dh), -b, b)
+        out["recurrent.wh"] = rng.uniform(k2, (dh, g * dh), -b, b)
+        out["recurrent.bi"] = rng.uniform(rng.fold_in(kr, 2), (g * dh,), -b, b)
+        out["recurrent.bh"] = rng.uniform(rng.fold_in(kr, 3), (g * dh,), -b, b)
+        return [out[name] for name, _ in self.specs]
+
+    def params_to_jax(self, leaves: Sequence[torch.Tensor] | None = None):
+        """The leaves as the JAX package's nested param dict of numpy arrays
+        (None at activations)."""
+        leaves = list(self.leaves) if leaves is None else leaves
+        byname = {n: t.detach().cpu().numpy() for (n, _), t in zip(self.specs, leaves)}
+        tree: Dict[str, Any] = {}
+        for head, cfg_key in (("feature", "layers"), ("actor", "actor"),
+                              ("critic", "critic")):
+            tree[head] = [{"w": byname[f"{head}.{i}.w"], "b": byname[f"{head}.{i}.b"]}
+                          if lc["type"] == "linear" else None
+                          for i, lc in enumerate(self.config[cfg_key])]
+        tree["recurrent"] = {k: byname[f"recurrent.{k}"] for k in ("wi", "wh", "bi", "bh")}
+        return tree
+
     # ---- forward ----
 
     def forward(self, obs: torch.Tensor, memory: torch.Tensor,
@@ -184,9 +209,6 @@ class ActorCritic(nn.Module):
         logits = _mlp(p, "actor", self.config["actor"], h)
         value = _mlp(p, "critic", self.config["critic"], h)[..., 0]
         return logits, value, h
-
-    def get_config(self) -> Dict[str, Any]:
-        return self.config
 
     @property
     def memory_dim(self) -> int:
