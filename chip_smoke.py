@@ -4,6 +4,7 @@ the drivers built on it (legacy drivers, viewers, test driver, profiler) on
 one CUDA card and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-cards 4     # phase 11 (b) alone on 4 cards
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build the three kernels from madrona_bots_tpu_torch/csrc (nvcc, in
@@ -90,13 +91,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      counted; `learn.app` and `learn.env_app` for 3 headless epochs where
      matplotlib imports (else a `[viz] frames skipped` line); `tools.prof`
      at 8192 x 128.
+  11. worlds-sharded scale-out (`parallel/`, `--use_mesh`), last: (a) the
+     CLI at 8192 x 128, hidden 128, bf16 in this process with and without
+     --use_mesh (a group of one process, NCCL): A2C with 10 learner rows, 3
+     epochs, and PPO with rollout 16, 1 x 8, 8 rows, 2 iterations; their
+     checkpoints equal in bits and their metrics rows but the clock's; (b)
+     8 env steps, 2 A2C ticks (loop and stacked, bf16, 10 rows) and 1 PPO
+     iteration at the bench shape in one process over 8192 worlds, then in
+     2 processes on this card over gloo with 4096 worlds each (this script
+     run with `--mesh-worker`): each rank's env shard equal in bits to its
+     slice of the one-process run (after the A2C ticks, but the action and
+     memory the last tick's updated policy wrote), parameters and Adam
+     state within rtol 1e-3, atol 1e-4 of it and equal in bits across the
+     ranks, count and dropped rows equal, one launch of each kernel a tick
+     and 16 an iteration per rank; ms a tick and an iteration for one
+     process and for each rank, all-reduces a tick, and the all-reduce
+     alone.
 
 Prints a `kernels` JSON line (each row's `launches` from its main path's
 run, `ppo_launches` in a PPO iteration at the bench shape,
 `stacked_launches` in a stacked tick, `stacked_ppo_launches` in a stacked
 PPO iteration, `manager_launches` in the 32 timed manager steps (rows
 systems and raycast), `driver_launches` in the 4-world web viewer's and the
-1-world test driver's two steps (rows raycast_packed and raycast_blocked)),
+1-world test driver's two steps (rows raycast_packed and raycast_blocked),
+`mesh_launches` by one rank in the mesh phase's counted runs (8 steps, 2 + 2
+ticks, 1 iteration)),
 the card's
 name and power limit, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the package beside it. Timings use CUDA events; a
@@ -469,6 +488,15 @@ def main() -> int:
                                 "raycast_blocked": drivers["one_world"]["raycast"]}.get(k["name"], 0)
     log("[drivers] raycast launches in the drivers' 2 steps by kernel row: "
         + json.dumps({k["name"]: k["driver_launches"] for k in kernels}))
+
+    # ---- 11. worlds-sharded scale-out (after every trace, like 10) ----
+    del train, ppo_run, strain, sppo
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(dev)
+    for k in kernels:
+        k["mesh_launches"] = mesh_launches[kernel_of[k["name"]]] if k["name"] in kernel_of else 0
+    log("[mesh] launches by one rank in its counted runs, by kernel row: "
+        + json.dumps({k["name"]: k["mesh_launches"] for k in kernels}))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -2100,8 +2128,9 @@ def train_where(train, cfg) -> None:
 
     def updates():
         for i, (m, ts, u) in enumerate(zip(models, tstates, ups)):
-            a2c._species_update(m, opt, ts, u[0], u[1], u[2], u[3], u[4], u[5], u[6],
-                                rng.key(i, dev), 1.0, False, bf16, loss_mask=u[7])
+            grad = a2c._species_grad(m, ts, *u[:7], rng.key(i, dev), 1.0, False, bf16,
+                                     loss_mask=u[7])[0]
+            opt.update(grad, ts.opt_state, ts.params)
 
     src = torch.zeros((NS * Wn, ROWS, NUM_ACTIONS + H), dtype=bf16, device=dev)
     held = [train["state"].clone(), tstates]
@@ -2172,6 +2201,7 @@ def ppo_where(run, cfg) -> None:
     end_state, end_key, roll = it.rollout(base.clone(), params, key)
     adv = it.advantages(end_state, params, end_key, roll)
     bufs, _ = it.update_buffers(roll, adv, end_key)
+    moments = it.adv_moments(bufs)
     kslot, fields, _, _ = ppo_gather_inputs(base, cfg.num_species, None)
     held = [base.clone(), tstates]
 
@@ -2200,12 +2230,12 @@ def ppo_where(run, cfg) -> None:
     }
     for s in range(cfg.num_species):
         parts[f"update_species_{s + 1}"] = (
-            lambda s=s: it.updates(it.models[s], tstates[s], bufs[s]))
+            lambda s=s: it.updates(it.models[s], tstates[s], bufs[s], moments[s]))
     parts["metrics_copy"] = lambda: a2c.stack_metrics(run["metrics"]).cpu()
     parts["whole_iteration"] = whole
     ms = {name: host_ms(fn, reps=3) for name, fn in parts.items()}
     log(f"[where] ppo iteration host ms per call, synchronised: {json.dumps(ms)}")
-    del roll, adv, bufs
+    del roll, adv, bufs, moments
 
     launched, busy_ms, wall_ms, kern = traced(whole, 1)
     top = sorted(kern, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
@@ -2290,5 +2320,399 @@ def golden_digests(state) -> dict:
     return row
 
 
+MESH_STEPS, MESH_TICKS, MESH_TIMED = 8, 2, 4   # rollout steps, compared and timed ticks
+MESH_RANKS, MESH_TIMEOUT_S = 2, 600
+MESH_RTOL, MESH_ATOL = 1e-3, 1e-4             # tests/test_sharding.py's parameter tolerance
+LEARNER_WRITTEN = ("action", "hidden")         # written by the last tick's updated policy
+CLOCK_KEYS = ("_t", "epoch_fps")                # metrics that read the clock
+
+
+def mesh_cli(flags: list, label: str) -> None:
+    """[mesh] (a): the training CLI in this process at the bench shape, with
+    and without --use_mesh (a group of one process, NCCL on the card): the
+    checkpoints must equal in bits, the metrics rows too but their clock
+    readings."""
+    import glob
+    import tempfile
+
+    from madrona_bots_tpu_torch.learn import training_loop as cli
+    from madrona_bots_tpu_torch.parallel import distributed
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        runs = {}
+        for mode, extra in (("plain", []), ("mesh", ["--use_mesh"])):
+            save = os.path.join(tmp, mode)
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                cli.main(["--num_worlds", str(W), "--hidden_dim", str(HIDDEN), "--universe_id",
+                          "mesh", "--model_save_dir", save, "--create_universe",
+                          "--compute_dtype", "bf16"] + flags + extra + device_flag())
+            names = sorted(os.path.relpath(f, save) for f in glob.glob(
+                os.path.join(save, "**", "*"), recursive=True) if os.path.isfile(f))
+            runs[mode] = (time.perf_counter() - t0, text.getvalue(), save, names)
+        check("mesh: 1 devices, worlds sharded" in runs["mesh"][1], "CLI --use_mesh: no mesh line")
+        check(runs["mesh"][3] == runs["plain"][3],
+              f"CLI --use_mesh files {runs['mesh'][3]} vs {runs['plain'][3]}")
+        bad, arrays = [], 0
+        for name in runs["mesh"][3]:
+            a, b = (os.path.join(runs[m][2], name) for m in ("mesh", "plain"))
+            if name.endswith(".npz"):
+                with np.load(a) as za, np.load(b) as zb:
+                    arrays += len(za.files)
+                    bad += [f"{name}:{k}" for k in za.files
+                            if k not in zb.files or za[k].tobytes() != zb[k].tobytes()]
+            else:
+                rows = [[{k: v for k, v in json.loads(ln).items() if k not in CLOCK_KEYS}
+                         for ln in open(p)] for p in (a, b)]
+                if rows[0] != rows[1] or not rows[0]:
+                    bad.append(name)
+        check(not bad, f"CLI --use_mesh {label}: differs from the plain run in {bad[:8]}")
+    log(f"[mesh] (a) CLI {label} ({' '.join(flags)}) at {W}x{A}, hidden {HIDDEN}, bf16: "
+        f"--use_mesh (1 process, {distributed.choose_backend(torch.device(DEVICE), 1)}) "
+        f"{runs['mesh'][0]:.1f} s, plain {runs['plain'][0]:.1f} s; {len(runs['mesh'][3])} files, "
+        f"{arrays} checkpoint arrays equal in bits, metrics rows equal but {list(CLOCK_KEYS)}")
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def field_digests(state, worlds=None) -> dict:
+    """blake2b of each field's bytes, of worlds [lo, hi) where given
+    (`step_count` whole: it is replicated)."""
+    from madrona_bots_tpu_torch.env.state import FIELDS
+    out = {}
+    for f in FIELDS:
+        x = getattr(state, f)
+        if worlds is not None and f != "step_count":
+            x = x[worlds[0]:worlds[1]]
+        out[f] = hashlib.blake2b(x.contiguous().cpu().numpy().tobytes(),
+                                 digest_size=8).hexdigest()
+    return out
+
+
+def mesh_runs(mesh, dev, conf: dict, tag: str) -> dict:
+    """[mesh] (b) on this process's worlds, with `mesh` (a rank's shard) or
+    without (every world, the one-process reference): `steps` env steps
+    with random one-hot actions drawn for every world, 2 A2C ticks (loop
+    and stacked) and 1 PPO iteration, each from `init_state`, with each
+    state's field digests (for every rank's slice without a mesh), the
+    kernels' launches, the global count and dropped-row metrics, and the
+    parameters saved to `{out}/{run}_{tag}.pt`; then timed ticks and a
+    timed iteration."""
+    import torch.nn.functional as F
+
+    from madrona_bots_tpu_torch import EnvConfig, init_state, rng
+    from madrona_bots_tpu_torch.env import env as env_mod
+    from madrona_bots_tpu_torch.learn import a2c, ppo
+    from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+    from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
+
+    Wn, bf16 = conf["worlds"], torch.bfloat16
+    cfg = EnvConfig(num_worlds=Wn, init_agents=INIT, max_agents=A)
+    worlds = None if mesh is None else mesh.world_range(Wn)
+    lo, hi = worlds or (0, Wn)
+    n = Wn // conf["ranks"]
+    slices = ([None] if mesh is not None
+              else [(r * n, (r + 1) * n) for r in range(conf["ranks"])])
+    gen = SpeciesNetGenerator(cfg.obs_dim, 6, conf["hidden"], cfg.hidden_state_dim, seed=0)
+    models = [ActorCritic.from_generator(gen, device=dev) for _ in range(cfg.num_species)]
+    res = {"launches": {"systems": 0, "raycast": 0, "row_gather": 0}}
+
+    def counted(fn):
+        sync(dev)
+        reset_launches()
+        out = fn()
+        sync(dev)
+        for k, v in read_launches().items():
+            res["launches"][k] += v
+        return out, read_launches()
+
+    def keep(name, state, ts, m, launches, units):
+        tss = [ts] if isinstance(ts, a2c.SpeciesTrainState) else list(ts)
+        leaves = [x for t in tss for x in (t.params, *t.opt_state)]
+        torch.save({"params": [t.params.cpu() for t in tss],
+                    "moments": [x.cpu() for t in tss for x in t.opt_state[1:]]},
+                   os.path.join(conf["out"], f"{name}_{tag}.pt"))
+        res[name] = {
+            "fields": [field_digests(state, sl) for sl in slices],
+            "launches": {k: v / units for k, v in launches.items()},
+            "metrics": {k: float(v) for k, v in m.items() if k.endswith(("_count", "_dropped_rows"))},
+            "params": hashlib.blake2b(b"".join(x.cpu().numpy().tobytes() for x in leaves),
+                                      digest_size=8).hexdigest()}
+
+    def rollout():
+        s = init_state(cfg, 0, dev, worlds)
+        for t in range(conf["steps"]):
+            act = rng.randint(rng.fold_in(rng.key(77, dev), t), (Wn, A), 0, 6)[lo:hi]
+            s = env_mod.shift_observations(env_mod.step(env_mod.set_actions(
+                s, F.one_hot(act.long(), 6).to(torch.int32)), cfg), cfg)
+        return s
+
+    s, launches = counted(rollout)
+    res["rollout"] = {"fields": [field_digests(s, sl) for sl in slices],
+                      "launches": {k: v / conf["steps"] for k, v in launches.items()}}
+    del s
+    # bf16 (the bench shape's learners: timed), then f32 (held to the
+    # strict tolerance: bf16 rounds each rank's gradient before the sum).
+    for suffix, cd, timed in (("", bf16, conf["timed"]), ("_f32", None, 0)):
+        for name, stacked in (("a2c" + suffix, False), ("a2c_stacked" + suffix, True)):
+            tick, opt = a2c.make_train_tick(models, cfg, lr=LR, compute_dtype=cd,
+                                            learner_slots_per_class=conf["rows"],
+                                            stacked=stacked, mesh=mesh)
+            init = a2c.init_stacked_train_state if stacked else a2c.init_train_states
+            run = [init_state(cfg, 0, dev, worlds), init(models, rng.key(1, dev), opt), None]
+
+            def ticks(k0, k1):
+                for t in range(k0, k1):
+                    run[0], run[1], run[2] = tick(run[0], run[1],
+                                                  rng.fold_in(rng.key(9, dev), t))
+                    a2c.stack_metrics(run[2]).cpu()
+
+            _, launches = counted(lambda: ticks(0, MESH_TICKS))
+            keep(name, run[0], run[1], run[2], launches, MESH_TICKS)
+            times, calls = [], COLLECTIVES[0]
+            for t in range(MESH_TICKS, MESH_TICKS + timed):
+                sync(dev)
+                t0 = time.perf_counter()
+                ticks(t, t + 1)
+                times.append((time.perf_counter() - t0) * 1e3)
+            if timed:
+                res[name].update(ms=float(np.median(times)),
+                                 collectives=(COLLECTIVES[0] - calls) / timed)
+        name = "ppo" + suffix
+        it, opt = ppo.make_ppo_trainer(models, cfg, rollout_len=conf["ppo_t"],
+                                       num_minibatches=conf["ppo_m"], lr=LR, compute_dtype=cd,
+                                       learner_slots_per_class=conf["ppo_slots"], mesh=mesh)
+        ts = a2c.init_train_states(models, rng.key(1, dev), opt)
+        (s, ts, m), launches = counted(
+            lambda: it(init_state(cfg, 2, dev, worlds), ts, rng.key(3, dev)))
+        keep(name, s, ts, m, launches, 1)
+        res[name]["losses"] = {k: float(v) for k, v in m.items() if k.endswith("_loss")}
+        if timed:
+            sync(dev)
+            calls, t0 = COLLECTIVES[0], time.perf_counter()
+            s, ts, m = it(s, ts, rng.key(4, dev))
+            a2c.stack_metrics(m).cpu()
+            res[name].update(ms=(time.perf_counter() - t0) * 1e3,
+                             collectives=COLLECTIVES[0] - calls)
+        del s, ts, m, it
+    res["param_count"] = sum(mod.num_params for mod in models)
+    return res
+
+
+COLLECTIVES = [0]   # all-reduces this process made (counted in a mesh worker)
+
+
+def mesh_worker(conf_json: str) -> int:
+    """One rank of [mesh] (b), run as `chip_smoke.py --mesh-worker CONF`: a
+    group of `ranks` processes through a file store (gloo on one card,
+    NCCL with a card each), this rank's `mesh_runs`, and the all-reduce
+    alone at the loop's gradient size and at the metric vector's; prints
+    one JSON line."""
+    import torch.distributed as dist
+
+    from madrona_bots_tpu_torch.parallel import distributed
+
+    conf = json.loads(conf_json)
+    torch.backends.cuda.matmul.allow_tf32 = False        # as main(): f32 products in f32
+    dev_arg = None if conf["device"] == "cuda" else conf["device"]
+    mesh = distributed.initialize(f"file://{conf['store']}", conf["ranks"], conf["rank"],
+                                  device=dev_arg, timeout_s=MESH_TIMEOUT_S / 2)
+    plain_all_reduce = dist.all_reduce
+
+    def counting_all_reduce(*args, **kwargs):
+        COLLECTIVES[0] += 1
+        return plain_all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counting_all_reduce
+    try:
+        res = mesh_runs(mesh, mesh.device, conf, f"rank{conf['rank']}")
+        res.update(rank=mesh.rank, backend=dist.get_backend(), device=str(mesh.device),
+                   worlds=list(mesh.world_range(conf["worlds"])))
+        res["all_reduce_ms"] = {}
+        for label, size in (("gradients", res["param_count"]), ("metrics", 60)):
+            x = torch.ones(size, device=mesh.device)
+            times = []
+            for _ in range(21):
+                sync(mesh.device)
+                t0 = time.perf_counter()
+                mesh.reduce_sum([x])
+                sync(mesh.device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            res["all_reduce_ms"][label] = float(np.median(times[1:]))
+    finally:
+        dist.all_reduce = plain_all_reduce
+        distributed.shutdown()
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def mesh_phase(dev, conf=None, cli: bool = True) -> dict:
+    """[mesh]: (a) `mesh_cli` for A2C and PPO (with `cli`); (b) `mesh_runs`
+    without a mesh over every world, then in `ranks` processes (default
+    MESH_RANKS on this one card over gloo; `--mesh-cards N`: one a card
+    over NCCL), each holding its share of the worlds: each rank's env shard
+    equal in bits to its slice of the one-process run (after the A2C ticks
+    but the fields the last tick's updated policy wrote), its parameters
+    within MESH_RTOL / MESH_ATOL of the one-process run's and equal in bits
+    across the ranks, its count and dropped-row metrics equal, one launch
+    of each kernel a tick and PPO_T an iteration. Returns each kernel's
+    launches by one rank over its counted runs."""
+    import tempfile
+
+    from madrona_bots_tpu_torch.parallel import distributed
+
+    if cli:
+        mesh_cli(["--learner_slots", str(ROWS), "--num_epochs", "3"], "a2c")
+        mesh_cli(["--algo", "ppo", "--rollout_len", str(PPO_T), "--learner_slots",
+                  str(PPO_SLOTS), "--num_epochs", "2"], "ppo")
+    conf = dict(dict(worlds=W, hidden=HIDDEN, rows=ROWS, ppo_t=PPO_T, ppo_m=PPO_M,
+                     ppo_slots=PPO_SLOTS, steps=MESH_STEPS, timed=MESH_TIMED, device=DEVICE,
+                     ranks=MESH_RANKS), **(conf or {}))
+    conf["backend"] = distributed.choose_backend(torch.device(DEVICE), conf["ranks"])
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        conf["out"], conf["store"] = tmp, os.path.join(tmp, "store")
+        one = mesh_runs(None, dev, conf, "one")
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                                   json.dumps(dict(conf, rank=r))],
+                                  cwd=REPO, env=subprocess_env(), stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(conf["ranks"])]
+        outs = []
+        try:
+            for p in procs:
+                try:
+                    out, err = p.communicate(timeout=MESH_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    check(False, f"[mesh] a worker ran past {MESH_TIMEOUT_S} s")
+                if p.returncode != 0:
+                    log(err[-4000:])
+                check(p.returncode == 0, f"[mesh] worker exited {p.returncode}")
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        report = mesh_report(one, outs, conf)
+    return report
+
+
+def mesh_report(one: dict, ranks: list, conf: dict) -> dict:
+    """Hold the ranks' results against the one-process run and log them.
+    Parameters of the f32 A2C ticks: within MESH_RTOL / MESH_ATOL everywhere
+    (tests/test_sharding.py). The others by the port's bf16 rule
+    (tests/test_torch_a2c.py, test_torch_ppo.py): within 2 lr per Adam step
+    everywhere and under lr / 10 per step on average. In bf16 each rank
+    rounds its gradient before the sum, so an element whose rank parts
+    cancel may step the other way; in PPO a row whose ratio sits at the
+    clip's edge may fall on either side when the forward's products round
+    differently at another batch size, so its gradient is there or not.
+    PPO is also held by its losses: f32 within 1e-4 relative
+    (tests/test_multihost.py), bf16 within rtol 1e-2, atol 1e-3
+    (tests/test_torch_ppo.py's bf16 metrics)."""
+    pt = conf["ppo_t"]
+    runs = {"rollout": ({"systems": 1, "raycast": 1, "row_gather": 0}, 1)}
+    for suffix, gather in (("", 1), ("_f32", 0)):
+        runs.update({"a2c" + suffix: ({"systems": 1, "raycast": 1, "row_gather": gather}, 2),
+                     "a2c_stacked" + suffix: ({"systems": 1, "raycast": 1,
+                                               "row_gather": gather}, 2),
+                     "ppo" + suffix: ({"systems": pt, "raycast": pt, "row_gather": pt * gather},
+                                      conf["ppo_m"])})
+    R = len(ranks)
+    for r, res in enumerate(ranks):
+        check(res["worlds"] == [r * conf["worlds"] // R, (r + 1) * conf["worlds"] // R],
+              f"rank {r} worlds")
+        check(res["backend"] == conf["backend"], f"rank {r} backend {res['backend']}")
+    for name, (launches, steps) in runs.items():
+        diffs = []
+        for r, res in enumerate(ranks):
+            mine, ref = res[name]["fields"][0], one[name]["fields"][r]
+            diffs.append(sorted(f for f in mine if mine[f] != ref[f]))
+            check(res[name]["launches"] == launches,
+                  f"[mesh] {name} rank {r} launches {res[name]['launches']}")
+        allowed = LEARNER_WRITTEN if name.startswith("a2c") else ()
+        check(all(set(d) <= set(allowed) for d in diffs),
+              f"[mesh] {name}: shard fields differ from the one-process slice: {diffs}")
+        unit = {"rollout": "step", "ppo": "iteration"}.get(name.split("_f32")[0], "tick")
+        line = (f"[mesh] (b) {name}, {R} ranks: each rank's shard vs its slice of one process: fields "
+                f"differing {diffs}; launches per {unit} {json.dumps(ranks[0][name]['launches'])}")
+        if name != "rollout":
+            check(all(res[name]["params"] == ranks[0][name]["params"] for res in ranks),
+                  f"[mesh] {name}: parameters differ across ranks")
+            for res in ranks:
+                check(res[name]["metrics"] == one[name]["metrics"],
+                      f"[mesh] {name}: count / dropped_rows {res[name]['metrics']} vs "
+                      f"{one[name]['metrics']}")
+            want = torch.load(os.path.join(conf["out"], f"{name}_one.pt"))
+            got = torch.load(os.path.join(conf["out"], f"{name}_rank0.pt"))
+            d = torch.cat([(g - w).abs() for g, w in zip(got["params"], want["params"])])
+            outside = sum(int((~torch.isclose(g, w, rtol=MESH_RTOL, atol=MESH_ATOL)).sum())
+                          for g, w in zip(got["params"], want["params"]))
+            mom = max(float(((g - w).abs().max() / w.abs().max().clamp(min=1e-30)))
+                      for g, w in zip(got["moments"], want["moments"]))
+            if name.startswith("a2c") and name.endswith("_f32"):
+                check(outside == 0, f"[mesh] {name}: {outside} parameters outside rtol "
+                                    f"{MESH_RTOL}, atol {MESH_ATOL} (max |diff| {float(d.max())})")
+            else:
+                check(float(d.max()) <= 2 * LR * steps and float(d.mean()) <= LR / 10 * steps,
+                      f"[mesh] {name}: parameters max |diff| {float(d.max())}, mean "
+                      f"{float(d.mean())} over {steps} Adam steps")
+            line += (f"; parameters equal across ranks ({ranks[0][name]['params']}), from one "
+                     f"process max |diff| {float(d.max()):.3g}, mean {float(d.mean()):.3g}, "
+                     f"{outside} of {d.numel()} outside rtol {MESH_RTOL}, atol {MESH_ATOL}; Adam "
+                     f"moments max |diff| {mom:.3g} of max |moment|; count and dropped rows equal")
+            if "ms" in ranks[0][name]:
+                line += (f"; ms one process {one[name]['ms']:.3f} vs ranks "
+                         + " / ".join(f"{res[name]['ms']:.3f}" for res in ranks)
+                         + f" ({ranks[0][name]['collectives']:.0f} all-reduces)")
+        if name.startswith("ppo"):
+            pairs = [(res[name]["losses"][k], v) for res in ranks
+                     for k, v in one[name]["losses"].items()]
+            rel = max(abs(a - b) / max(1.0, abs(b)) for a, b in pairs)
+            # f32: tests/test_multihost.py's rule; bf16: the bf16 metric
+            # tolerance of tests/test_torch_ppo.py (rtol 1e-2, atol 1e-3).
+            check(rel < 1e-4 if name.endswith("_f32")
+                  else all(abs(a - b) <= 1e-3 + 1e-2 * abs(b) for a, b in pairs),
+                  f"[mesh] {name}: losses {rel} relative from one process")
+            line += f"; losses within {rel:.3g} relative"
+        log(line)
+    log(f"[mesh] (b) all-reduce alone over {conf['backend']}, {R} ranks, ms median of 20: "
+        + "; ".join(f"rank {res['rank']} {json.dumps(res['all_reduce_ms'])}" for res in ranks)
+        + f" (gradients: {one['param_count']} f32, the loop's four species)")
+    return ranks[0]["launches"]
+
+def mesh_cards(n: int) -> int:
+    """`chip_smoke.py --mesh-cards N`: [mesh] (b) alone, one process a card
+    on N cards (NCCL), against one process on the first card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke --mesh-cards {n}: needs {n} CUDA devices", file=sys.stderr)
+        return 1
+    from madrona_bots_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    log(f"devices: {'; '.join(smi)} | torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[build] in {_build.build()[0]:.1f} s")
+    launches = mesh_phase(torch.device(DEVICE), conf=dict(ranks=n), cli=False)
+    log(f"[mesh] launches by one rank in its counted runs: {json.dumps(launches)}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-cards"]:
+        sys.exit(mesh_cards(int(sys.argv[2])))
     sys.exit(main())

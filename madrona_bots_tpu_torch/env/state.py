@@ -76,18 +76,26 @@ class WorldState:
 FIELDS = tuple(f.name for f in dataclasses.fields(WorldState))
 
 
-def init_state(cfg: EnvConfig, seed: int = 0, device=None) -> WorldState:
+def init_state(cfg: EnvConfig, seed: int = 0, device=None,
+               worlds: tuple[int, int] | None = None) -> WorldState:
     """initWorld semantics, bit-exact with the JAX `init_state(key(seed))`:
     init_agents agents in slots [0, init_agents) with species
-    (slot % NS) + 1, uniform positions, heading 0, health 100; no food."""
+    (slot % NS) + 1, uniform positions, heading 0, health 100; no food.
+
+    `worlds=(lo, hi)` builds only global worlds [lo, hi) of the
+    `cfg.num_worlds`: world keys are `fold_in(world_salted, global id)`, so
+    the result equals that slice of the full state (a rank's shard)."""
     dev = resolve(device)
-    W, A, S, H = cfg.num_worlds, cfg.max_agents, cfg.sensor_size, cfg.hidden_state_dim
+    lo, hi = (0, cfg.num_worlds) if worlds is None else worlds
+    if not 0 <= lo < hi <= cfg.num_worlds:
+        raise ValueError(f"world range [{lo}, {hi}) outside [0, {cfg.num_worlds})")
+    W, A, S, H = hi - lo, cfg.max_agents, cfg.sensor_size, cfg.hidden_state_dim
     C, P, NS = cfg.num_chunks, cfg.max_food_packages, cfg.num_species
     f32, i32 = torch.float32, torch.int32
 
     world_salted = rng.fold_in(rng.key(seed, dev), SALT_WORLD)
     world_keys = rng.fold_in(world_salted[None, :],
-                             torch.arange(W, device=dev))        # [W, 2]
+                             torch.arange(lo, hi, device=dev))   # [W, 2]
     u = rng.uniform(rng.fold_in(world_keys, SALT_INIT), (A, 2))  # [W, A, 2]
     lims = const([cfg.world_lim_x, cfg.world_lim_y], f32, dev)
     pos = u * lims

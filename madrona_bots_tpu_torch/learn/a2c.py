@@ -24,6 +24,11 @@ logits, and its metrics have the loop's names.
 `compute_dtype=torch.bfloat16` runs the forwards in bf16 against f32 master
 parameters; gradients and Adam stay f32, and memory written back in the
 compacting path travels in bf16.
+
+With a mesh (`parallel/`) the tick runs on a rank's shard of the worlds:
+each species' gradient comes from `_species_grad`, and the critic's
+denominators, the gradients and the metric sums are all-reduced before
+they are used, so every rank computes the global tick.
 """
 
 from __future__ import annotations
@@ -151,20 +156,22 @@ def policy_forward(model, flat: torch.Tensor, obs: torch.Tensor,
     return logits.to(f32), v.to(f32), h.to(f32)
 
 
-def _species_update(model, optimizer: Adam, ts: SpeciesTrainState,
-                    obs_cur, obs_prev, mem_cur, mem_prev, prev_actions, rewards,
-                    mask, key, gamma: float, proper_log_probs: bool,
-                    compute_dtype=None, loss_mask=None):
-    """One species' gradient step on [N, ...] rows, or every species' at
-    once: with `model` a `StackedActorCritic`, `ts` its stacked train state,
-    rows [NS, N, ...] and `key` [NS, 2] (species s samples with its own
-    key), one forward, one draw and one loss whose sum over species gives
-    each species its own gradient in its own slice. `mask` [..., N] f32
-    selects alive rows and `loss_mask` (default `mask`) also drops rows
-    without a valid previous transition (SPEC D9). Returns (new train
-    state, sampled actions [..., N], new memory [..., N, H] f32, metrics:
-    actor_loss, critic_loss, total_loss, avg_action_prob,
-    avg_action_entropy, each [] or [NS])."""
+def _species_grad(model, ts: SpeciesTrainState, obs_cur, obs_prev, mem_cur, mem_prev,
+                  prev_actions, rewards, mask, key, gamma: float, proper_log_probs: bool,
+                  compute_dtype=None, loss_mask=None, loss_denom=None, offset: int = 0):
+    """One species' gradient on [N, ...] rows, or every species' at once:
+    with `model` a `StackedActorCritic`, `ts` its stacked train state, rows
+    [NS, N, ...] and `key` [NS, 2] (species s samples with its own key), one
+    forward, one draw and one loss whose sum over species gives each species
+    its own gradient in its own slice. `mask` [..., N] f32 selects alive
+    rows and `loss_mask` (default `mask`) also drops rows without a valid
+    previous transition (SPEC D9). `loss_denom` (default: `loss_mask`'s row
+    count) is the critic mean's denominator and `offset` the first row's
+    flat index in the global action draw: a shard passes both over every
+    rank. Returns (gradient, sampled actions [..., N], new memory [..., N,
+    H] f32, metric sums [..., 5]: actor loss, critic loss, sum of the taken
+    actions' log-probabilities and of the entropies over `mask`, `mask`'s
+    row count; `policy_metrics` turns them into the tick's metrics)."""
     if loss_mask is None:
         loss_mask = mask
 
@@ -173,7 +180,7 @@ def _species_update(model, optimizer: Adam, ts: SpeciesTrainState,
 
     with torch.no_grad():
         logits, v_new, new_mem = fwd(ts.params, obs_cur, mem_cur)
-    actions = rng.categorical(key, logits)
+    actions = rng.categorical(key, logits, offset)
 
     flat = ts.params.detach().requires_grad_(True)
     with torch.enable_grad():
@@ -183,25 +190,29 @@ def _species_update(model, optimizer: Adam, ts: SpeciesTrainState,
         logp_all = F.log_softmax(logits_p, dim=-1) if proper_log_probs else logits_p
         logp = torch.gather(logp_all, -1, prev_actions.long()[..., None])[..., 0]
         actor_loss, critic_loss = compute_loss(logp, rewards, v_prev, v_new,
-                                               gamma=gamma, mask=loss_mask)
-        total = actor_loss + critic_loss
-        (grad,) = torch.autograd.grad(total.sum(), flat)
-    new_params, new_opt = optimizer.update(grad, ts.opt_state, ts.params)
+                                               gamma=gamma, mask=loss_mask,
+                                               denom=loss_denom)
+        (grad,) = torch.autograd.grad((actor_loss + critic_loss).sum(), flat)
 
     with torch.no_grad():
-        denom = torch.clamp(mask.sum(dim=-1), min=1.0)
         logp_soft = F.log_softmax(logits, dim=-1)
         logp_taken = torch.gather(logp_soft, -1, actions[..., None])[..., 0]
         probs = F.softmax(logits, dim=-1)
         entropy = -torch.sum(probs * torch.log(torch.clamp(probs, min=1e-12)), dim=-1)
-        metrics = {
-            "actor_loss": actor_loss.detach(),
-            "critic_loss": critic_loss.detach(),
-            "total_loss": total.detach(),
-            "avg_action_prob": torch.exp(torch.sum(logp_taken * mask, dim=-1) / denom),
-            "avg_action_entropy": torch.sum(entropy * mask, dim=-1) / denom,
-        }
-    return SpeciesTrainState(new_params, new_opt), actions, new_mem, metrics
+        sums = torch.stack([actor_loss.detach(), critic_loss.detach(),
+                            torch.sum(logp_taken * mask, dim=-1),
+                            torch.sum(entropy * mask, dim=-1), mask.sum(dim=-1)], dim=-1)
+    return grad, actions, new_mem, sums
+
+
+def policy_metrics(sums: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """actor_loss, critic_loss, total_loss, avg_action_prob and
+    avg_action_entropy from `_species_grad`'s metric sums (of one rank or
+    summed over every rank)."""
+    actor, critic, logp, ent, n = sums.unbind(-1)
+    denom = torch.clamp(n, min=1.0)
+    return {"actor_loss": actor, "critic_loss": critic, "total_loss": actor + critic,
+            "avg_action_prob": torch.exp(logp / denom), "avg_action_entropy": ent / denom}
 
 
 def class_masks(state: WorldState, NS: int):
@@ -283,7 +294,7 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
                     proper_log_probs: bool = False, quirk_compat: bool = False,
                     use_kernels: bool = True, compute_dtype=None,
                     learner_slots_per_class=None, stacked: bool = False,
-                    quirk_inloop_shift: bool = False):
+                    quirk_inloop_shift: bool = False, mesh=None):
     """Build the train tick: returns (tick, optimizer) where
     tick(state, train_states, key) -> (state, train_states, metrics)
     runs sim step -> NS species updates -> write-back -> shift. Consumes
@@ -298,7 +309,14 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
 
     quirk_inloop_shift (SPEC Q8) reproduces the reference's shift inside
     the species loop; see the JAX `make_train_tick`. Loop path only, without
-    compaction."""
+    compaction.
+
+    With `mesh` (`parallel/mesh.py`) the tick runs on this rank's shard of
+    the `cfg.num_worlds` worlds and computes the global tick: its action
+    draw is its slice of the global draw, the critic's denominators, the
+    gradients and the metric sums are all-reduced (one collective each),
+    so every rank steps Adam on the same bits and the parameters stay
+    replicated."""
     optimizer = make_optimizer(lr)
     NS = cfg.num_species
     if len(models) != NS:
@@ -371,20 +389,39 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
         state = env_mod.step(state, cfg, use_kernels)
         W, A = state.alive.shape
         up, mask, loss_mask, dropped, m_full, compaction = learner_rows(state)
+        Wg, offset, loss_denom = W, 0, None
+        if mesh is not None:
+            # This rank's rows are rows [lo * rows, hi * rows) of each
+            # species' global draw; the critic mean divides by the count
+            # over every rank (the one collective before the loss).
+            lo, hi = mesh.world_range(cfg.num_worlds)
+            if hi - lo != W:
+                raise ValueError(f"a shard of {W} worlds, the mesh gives [{lo}, {hi})")
+            Wg, offset = cfg.num_worlds, lo * rows * NUM_ACTIONS
+            (loss_denom,) = mesh.reduce_sum([loss_mask.sum(dim=-1)])
         if stacked:
             keys = rng.fold_in(key, torch.arange(NS, device=key.device))
-            new_ts, actions, new_mem, m = _species_update(
-                sac, optimizer, train_states, *up, mask, keys, gamma, proper_log_probs,
-                compute_dtype, loss_mask=loss_mask)
+            grad, actions, new_mem, sums = _species_grad(
+                sac, train_states, *up, mask, keys, gamma, proper_log_probs,
+                compute_dtype, loss_mask, loss_denom, offset)
+            if mesh is not None:
+                (grad,) = mesh.reduce_sum([grad])
+            new_ts = SpeciesTrainState(*optimizer.update(grad, train_states.opt_state,
+                                                         train_states.params))
         else:
-            outs = [_species_update(models[s], optimizer, train_states[s],
-                                    *(x[s] for x in up), mask[s], rng.fold_in(key, s), gamma,
-                                    proper_log_probs, compute_dtype, loss_mask=loss_mask[s])
+            outs = [_species_grad(models[s], train_states[s], *(x[s] for x in up), mask[s],
+                                  rng.fold_in(key, s), gamma, proper_log_probs, compute_dtype,
+                                  loss_mask[s], None if loss_denom is None else loss_denom[s],
+                                  offset)
                     for s in range(NS)]
-            new_ts = tuple(o[0] for o in outs)
+            grads = [o[0] for o in outs]
+            if mesh is not None:
+                grads = mesh.reduce_sum(grads)           # one all-reduce for every species
+            new_ts = tuple(SpeciesTrainState(*optimizer.update(g, ts.opt_state, ts.params))
+                           for g, ts in zip(grads, train_states))
             actions = torch.stack([o[1] for o in outs])
             new_mem = torch.stack([o[2] for o in outs])
-            m = {k: torch.stack([o[3][k] for o in outs]) for k in outs[0][3]}
+            sums = torch.stack([o[3] for o in outs])
         onehot = F.one_hot(actions, NUM_ACTIONS)
 
         # Population, reward and health always over the full alive set.
@@ -395,11 +432,15 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
             mfc = per_class(m_full)
             count = mfc.sum(dim=-1)
             hist = torch.sum(onehot.to(f32) * mask[..., None], dim=1)
-            m.update(count=count, reward=torch.sum(per_class(state.reward) * mfc, dim=-1),
-                     dropped_rows=dropped,
-                     avg_health=torch.sum(per_class(state.health) * mfc, dim=-1)
-                     / torch.clamp(count, min=1.0),
-                     count_per_world=count / W,
+            reward = torch.sum(per_class(state.reward) * mfc, dim=-1)
+            health = torch.sum(per_class(state.health) * mfc, dim=-1)
+            if mesh is not None:
+                sums, count, hist, reward, health, dropped = mesh.reduce_sum(
+                    [sums, count, hist, reward, health, dropped])
+            m = policy_metrics(sums)
+            m.update(count=count, reward=reward, dropped_rows=dropped,
+                     avg_health=health / torch.clamp(count, min=1.0),
+                     count_per_world=count / Wg,
                      popular_action=torch.argmax(hist, dim=-1).to(f32))
         metrics = {f"species_{s + 1}_{k}": m[k][s] for s in range(NS) for k in METRIC_NAMES}
 

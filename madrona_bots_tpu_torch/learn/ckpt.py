@@ -10,6 +10,10 @@ One `.npz` per checkpoint: `p_i` the parameter leaves and `o_i` the Adam
 leaves (count, mu, nu), both in the JAX package's leaf order, `model_config`
 as JSON bytes and `epoch`. A universe written by either package loads in
 the other (tests/test_torch_ckpt.py).
+
+Also the JAX module's interop helpers: `import_torch_checkpoint` (a
+reference `.pt` file as the port's net) and `save_sim_state` /
+`load_sim_state` (the simulator state in the JAX package's `.npz` layout).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from madrona_bots_tpu_torch.env.state import (FIELDS, WorldState, state_from_numpy,
+                                              state_to_numpy)
 from madrona_bots_tpu_torch.learn.a2c import Adam, AdamState
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
 
@@ -96,3 +102,52 @@ class CheckpointManager:
         if opt_state.mu.shape != params.shape or opt_state.nu.shape != params.shape:
             raise ValueError(f"{load_path}: Adam moments do not match the parameters")
         return model, params, opt_state, _epoch(load_path)
+
+
+def import_torch_checkpoint(path: str, device=None) -> Tuple[ActorCritic, torch.Tensor]:
+    """A reference-format `.pt` checkpoint as (the port's ActorCritic, its
+    flat parameter vector). The file holds `model_config` (which rebuilds
+    the random architecture) and `model_state_dict`, whose keys are
+    positional within each `nn.Sequential` (`a2c_nets.feature.{i}`,
+    `a2c_nets.actor.{i}`, `a2c_nets.critic.{i}`) and the recurrent cell's
+    `weight_ih_l0` / `weight_hh_l0` / `bias_*_l0`. torch stores a Linear
+    weight [out, in] and the cell's [gates * dh, din]; the port's are [in,
+    out] and [din, gates * dh], with the same gate order (LSTM i, f, g, o;
+    GRU r, z, n), as the JAX package's `import_torch_checkpoint`."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    config = ck["model_config"]
+    sd = {k: v.detach().to(torch.float32) for k, v in ck["model_state_dict"].items()}
+    model = ActorCritic(config, device=device)
+    src = {"recurrent.wi": sd["a2c_nets.recurrent.weight_ih_l0"].T,
+           "recurrent.wh": sd["a2c_nets.recurrent.weight_hh_l0"].T,
+           "recurrent.bi": sd["a2c_nets.recurrent.bias_ih_l0"],
+           "recurrent.bh": sd["a2c_nets.recurrent.bias_hh_l0"]}
+    for head in ("feature", "actor", "critic"):
+        for i, lc in enumerate(config["layers" if head == "feature" else head]):
+            if lc["type"] == "linear":
+                src[f"{head}.{i}.w"] = sd[f"a2c_nets.{head}.{i}.weight"].T
+                src[f"{head}.{i}.b"] = sd[f"a2c_nets.{head}.{i}.bias"]
+    leaves = []
+    for name, shape in model.specs:
+        if tuple(src[name].shape) != shape:
+            raise ValueError(f"{path}: {name} has shape {tuple(src[name].shape)}, "
+                             f"the config says {shape}")
+        leaves.append(src[name].contiguous())
+    return model, model.flatten(leaves).to(device)
+
+
+def save_sim_state(state: WorldState, path: str) -> None:
+    """The whole simulator state in the JAX package's layout: one `.npz`
+    with `s_{i}` the i-th `WorldState` field in field order, with the JAX
+    dtypes (world keys as their uint32 words), so either package loads a
+    state the other saved."""
+    arrays = state_to_numpy(state)
+    np.savez(path, **{f"s_{i}": arrays[name] for i, name in enumerate(FIELDS)})
+
+
+def load_sim_state(path: str, device=None) -> WorldState:
+    """A state saved by `save_sim_state` (either package's), on `device`
+    (default CUDA)."""
+    with np.load(path) as data:
+        return state_from_numpy({name: data[f"s_{i}"] for i, name in enumerate(FIELDS)},
+                                device)

@@ -33,6 +33,11 @@ rows, roll and minibatch classes as per species, and one loss and one Adam
 step a minibatch with per-species advantage normalisation, losses and
 gradient clip (`make_stacked_ppo_optimizer`). It needs learner slots; the
 record pack is the loop's.
+
+With a mesh (`parallel/`) an iteration runs on a rank's shard of the
+worlds: its draws are its slices of the global draws, each minibatch is
+its rows of the global minibatch (`shard_minibatches`), and the advantage
+moments, gradients and metrics are all-reduced.
 """
 
 from __future__ import annotations
@@ -160,8 +165,11 @@ class PPOTrainer:
                  rollout_len: int, num_minibatches: int, update_epochs: int,
                  clip_eps: float, gamma: float, gae_lambda: float, vf_coef: float,
                  ent_coef: float, use_kernels: bool, compute_dtype,
-                 learner_slots_per_class, decorrelate: bool, stacked: bool = False):
+                 learner_slots_per_class, decorrelate: bool, stacked: bool = False,
+                 mesh=None):
         self.models, self.cfg, self.optimizer = list(models), cfg, optimizer
+        self.mesh = mesh
+        self.lo = 0 if mesh is None else mesh.world_range(cfg.num_worlds)[0]
         self.NS = cfg.num_species
         if len(self.models) != self.NS:
             raise ValueError(f"{len(self.models)} models for {self.NS} species")
@@ -224,11 +232,14 @@ class PPOTrainer:
             value = unst(torch.where(m, v, 0.0))
             if not sample:
                 return None, None, value, None, obs
+            # A shard draws rows [lo * Asub, hi * Asub) of each species'
+            # global draw.
+            off = self.lo * Asub * NUM_ACTIONS
             if self.sac is not None:
                 a = rng.categorical(rng.fold_in(key, torch.arange(NS, device=key.device)),
-                                    logits)
+                                    logits, off)
             else:
-                a = torch.stack([rng.categorical(rng.fold_in(key, s), logits[s])
+                a = torch.stack([rng.categorical(rng.fold_in(key, s), logits[s], off)
                                  for s in range(NS)])
             lp = torch.gather(F.log_softmax(logits, dim=-1), -1, a[..., None])[..., 0]
             new_hidden = unst(h * m[..., None].to(h.dtype))
@@ -328,19 +339,50 @@ class PPOTrainer:
 
     # ---- update ----
 
+    def roll_offset(self, key, B: int, dev) -> torch.Tensor:
+        """The iteration's roll of the B rows: `randint(fold_in(key, 777),
+        (), 0, B)`, 0 without decorrelate."""
+        if self.decorrelate:
+            return rng.randint(rng.fold_in(key, 777), (), 0, B).to(torch.int64)
+        return torch.zeros((), dtype=torch.int64, device=dev)
+
     def minibatch_order(self, key, B: int, dev) -> torch.Tensor:
-        """[M * mb] row indices: the rows rolled by `randint(fold_in(key,
-        777), (), 0, B)` (0 without decorrelate), minibatch c = rolled rows
-        i * M + c, minibatch-major."""
+        """[M * mb] row indices: the rows rolled by `roll_offset`, minibatch
+        c = rolled rows i * M + c, minibatch-major."""
         M = self.M
         mb = B // M
-        if self.decorrelate:
-            off = rng.randint(rng.fold_in(key, 777), (), 0, B).to(torch.int64)
-        else:
-            off = torch.zeros((), dtype=torch.int64, device=dev)
+        off = self.roll_offset(key, B, dev)
         c = torch.arange(M, device=dev)[:, None]
         i = torch.arange(mb, device=dev)[None, :]
         return torch.remainder(i * M + c - off, B).reshape(M * mb)
+
+    def shard_minibatches(self, key, W: int, dev):
+        """This rank's share of each global minibatch, with the mesh: ([M *
+        P] local row indices, [M, P] present). Global row g = (t, world,
+        r) of a species' T * num_worlds * rows rows lies in minibatch c =
+        (g + roll) % M at position i = ((g + roll) % B) // M; the rank's
+        rows of each minibatch keep ascending i. Their count depends on the
+        roll, so each minibatch is padded to P = T * ceil(W * rows / M)
+        rows (the most any roll gives; no sync) with `present` False; it is
+        exact where W * rows divides by M or the rank holds every world
+        (then this is `minibatch_order`)."""
+        T, rows, M = self.T, self.rows, self.M
+        Wg = self.cfg.num_worlds
+        B, n = T * Wg * rows, W * rows
+        local = torch.arange(T * n, device=dev)
+        h = torch.remainder((local // n) * (Wg * rows) + self.lo * rows + local % n
+                            + self.roll_offset(key, B, dev), B)
+        cls = h % M
+        srt = torch.argsort(cls * (B // M) + h // M)
+        counts = torch.bincount(cls, minlength=M)
+        cs = cls[srt]
+        pos = local - (torch.cumsum(counts, 0) - counts)[cs]
+        P = T * n // M if n % M == 0 or W == Wg else T * -(-n // M)
+        idx = torch.zeros((M, P), dtype=torch.int64, device=dev)
+        present = torch.zeros((M, P), dtype=torch.bool, device=dev)
+        idx[cs, pos] = srt
+        present[cs, pos] = True
+        return idx.reshape(M * P), present
 
     def update_buffers(self, roll, advantages, key):
         """The update's buffers in minibatch-major order: (om [M, mb, D + H],
@@ -349,13 +391,17 @@ class PPOTrainer:
         ...] buffers (the same rows for species s); and the dropped rows
         [NS]. Compacted rows are gathered straight from the records, their
         advantages at the recorded source slots; returns = advantage +
-        recorded value."""
+        recorded value. With the mesh a minibatch holds this rank's rows of
+        the global one (`shard_minibatches`), the padding masked out."""
         T, NS, rows, Asub, M = self.T, self.NS, self.rows, self.Asub, self.M
         W, A = roll.alive.shape[1:]
         D = self.cfg.obs_dim
-        B = T * W * rows
         dev = advantages.device
-        order = self.minibatch_order(key, B, dev)
+        if self.mesh is None:
+            order, present = self.minibatch_order(key, T * W * rows, dev), None
+        else:
+            order, present = self.shard_minibatches(key, W, dev)
+        B = order.numel()                     # this rank's rows over all minibatches
 
         if self.rec_mode:
             C = roll.rec.shape[-1]
@@ -364,6 +410,9 @@ class PPOTrainer:
             t, q = order // (W * rows), order % (W * rows)
             idx = (t * NS + torch.arange(NS, device=dev)[:, None]) * (W * rows) + q
             idx = idx.reshape(NS, M, B // M).transpose(0, 1)          # [M, NS, mb]
+            valid = roll.valid.reshape(-1)[idx]
+            if present is not None:
+                valid = valid & present[:, None, :]
             rec = roll.rec.reshape(-1, C)[idx]
             src = roll.srcrow.reshape(-1)[idx].long()
             tw = (t * W + q // rows).reshape(M, 1, B // M)
@@ -375,7 +424,7 @@ class PPOTrainer:
                 lp = sum(rec[..., c0 + i].to(f32) for i in range(3))
                 vv = sum(rec[..., c0 + 3 + i].to(f32) for i in range(3))
             bufs = (rec[..., 0:D + H], rec[..., D + H].to(torch.int32), lp, ad, ad + vv, vv,
-                    roll.valid.reshape(-1)[idx])
+                    valid)
             dropped = roll.dropped.sum(dim=0)
             if self.sac is not None:
                 return bufs, dropped
@@ -386,7 +435,7 @@ class PPOTrainer:
 
         def fl(x, s):
             x4 = x.reshape((T, W, Asub, NS) + x.shape[3:])
-            return x4[:, :, :, s].reshape((B,) + x.shape[3:])
+            return x4[:, :, :, s].reshape((T * W * Asub,) + x.shape[3:])
 
         returns = advantages + roll.value
         bufs = []
@@ -394,23 +443,47 @@ class PPOTrainer:
             obs = _flat_obs(fl(roll.depth, s), fl(roll.health, s), fl(roll.pos, s),
                             fl(roll.semantic, s), fl(roll.surrounding, s), self.obs_dtype)
             om = torch.cat([obs, fl(roll.memory, s).to(obs.dtype)], dim=-1)
-            mask = fl(roll.alive, s) & (fl(roll.species, s) == s + 1)
+            mask = mbm(fl(roll.alive, s) & (fl(roll.species, s) == s + 1))
+            if present is not None:
+                mask = mask & present
             bufs.append(tuple(mbm(x) for x in (
                 om, fl(roll.action, s).to(torch.int32), fl(roll.logp, s),
-                fl(advantages, s), fl(returns, s), fl(roll.value, s), mask)))
+                fl(advantages, s), fl(returns, s), fl(roll.value, s))) + (mask,))
         return bufs, torch.zeros(NS, dtype=torch.int32, device=dev)
 
-    def loss(self, model, flat: torch.Tensor, picked):
+    def adv_moments(self, bufs_list):
+        """Each minibatch's (valid-row count clamped to 1, advantage mean,
+        advantage variance) for the advantage normalisation, in two passes:
+        (sum w, sum w * adv), then sum w * (adv - mean)^2, each summed over
+        the mesh's ranks in one all-reduce. `bufs_list` holds the buffers of
+        each species, or the stacked ones; returns [len(bufs_list)][M]
+        triples, scalars or [NS]."""
+        M = self.M
+
+        def reduce(xs):
+            return xs if self.mesh is None else self.mesh.reduce_sum(xs)
+
+        ws = [b[6].to(f32) for b in bufs_list]
+        first = reduce([x for b, w in zip(bufs_list, ws) for c in range(M)
+                        for x in (w[c].sum(dim=-1), torch.sum(b[3][c] * w[c], dim=-1))])
+        denom = [torch.clamp(n, min=1.0) for n in first[0::2]]
+        mu = [sa / d for sa, d in zip(first[1::2], denom)]
+        second = reduce([torch.sum((b[3][c] - mu[j * M + c][..., None]) ** 2 * w[c], dim=-1)
+                         for j, (b, w) in enumerate(zip(bufs_list, ws)) for c in range(M)])
+        stats = [(d, m, v / d) for d, m, v in zip(denom, mu, second)]
+        return [stats[j * M:(j + 1) * M] for j in range(len(bufs_list))]
+
+    def loss(self, model, flat: torch.Tensor, picked, moments):
         """(loss, pg_loss, v_loss, entropy) of one minibatch, each summed
-        over its valid rows and divided by max(their count, 1): scalars for a
-        species' `ActorCritic`, [NS] for the stacked net on [NS, mb, ...]
-        rows (advantages normalised per species)."""
+        over its valid rows and divided by max(their count, 1), the count
+        and the advantage normalisation's `moments` (`adv_moments`) over
+        every rank: scalars for a species' `ActorCritic`, [NS] for the
+        stacked net on [NS, mb, ...] rows (advantages normalised per
+        species). A shard's losses sum to the global minibatch's."""
         om, a, lp_old, adv, ret, vold, msk = picked
         D, eps = self.cfg.obs_dim, self.clip_eps
         w = msk.to(f32)
-        denom = torch.clamp(w.sum(dim=-1), min=1.0)
-        mu = torch.sum(adv * w, dim=-1) / denom
-        var = torch.sum((adv - mu[..., None]) ** 2 * w, dim=-1) / denom
+        denom, mu, var = moments
         adv_n = (adv - mu[..., None]) * torch.rsqrt(var + 1e-8)[..., None]
         logits, v, _ = policy_forward(model, flat, om[..., :D], om[..., D:], self.cd)
         lsm = F.log_softmax(logits, dim=-1)
@@ -427,12 +500,14 @@ class PPOTrainer:
         loss = (pg_s + self.vf_coef * vl_s - self.ent_coef * ent_s) / denom
         return loss, pg_s / denom, vl_s / denom, ent_s / denom
 
-    def updates(self, model, ts: SpeciesTrainState, bufs):
+    def updates(self, model, ts: SpeciesTrainState, bufs, moments):
         """`update_epochs x num_minibatches` Adam steps of one species
-        (`model` its ActorCritic, `bufs` its buffers) or of every species at
-        once (the stacked net and buffers): (new train state, [E * M, 4]
-        losses, [E * M, 4, NS] stacked). Epoch e visits minibatch (i + e) % M
-        at step i with `decorrelate`."""
+        (`model` its ActorCritic, `bufs` its buffers, `moments` their
+        `adv_moments`) or of every species at once (the stacked net and
+        buffers): (new train state, [E * M, 4] losses, [E * M, 4, NS]
+        stacked). Epoch e visits minibatch (i + e) % M at step i with
+        `decorrelate`. With the mesh each step's gradient is all-reduced
+        before Adam (and its clip) sees it."""
         params, opt = ts
         losses = []
         for e in range(self.E):
@@ -440,8 +515,10 @@ class PPOTrainer:
                 cls = (i + e) % self.M if self.decorrelate else i
                 flat = params.detach().requires_grad_(True)
                 with torch.enable_grad():
-                    out = self.loss(model, flat, tuple(x[cls] for x in bufs))
+                    out = self.loss(model, flat, tuple(x[cls] for x in bufs), moments[cls])
                     (grad,) = torch.autograd.grad(out[0].sum(), flat)
+                if self.mesh is not None:
+                    (grad,) = self.mesh.reduce_sum([grad])
                 params, opt = self.optimizer.update(grad, opt, params)
                 losses.append(torch.stack([x.detach() for x in out]))
         return SpeciesTrainState(params, opt), torch.stack(losses)
@@ -471,16 +548,23 @@ class PPOTrainer:
         NS = self.NS
         del roll, advantages                      # the buffers hold what the update needs
         if stacked:
-            new_ts, losses = self.updates(self.sac, train_states, bufs)
+            (moments,) = self.adv_moments([bufs])
+            new_ts, losses = self.updates(self.sac, train_states, bufs, moments)
             mean = losses.mean(dim=0)                                    # [4, NS]
         else:
+            moments = self.adv_moments(bufs)
             new_ts, means = [], []
             for s in range(NS):
-                ts, losses = self.updates(self.models[s], train_states[s], bufs[s])
+                ts, losses = self.updates(self.models[s], train_states[s], bufs[s], moments[s])
                 bufs[s] = None                    # free the species' buffers
                 new_ts.append(ts)
                 means.append(losses.mean(dim=0))
             new_ts, mean = tuple(new_ts), torch.stack(means, dim=1)
+        if self.mesh is not None:
+            # One all-reduce: each rank's loss terms are its part of the
+            # global minibatch's, its counts and rewards its worlds'.
+            mean, count, reward, dropped = self.mesh.reduce_sum([mean, count, reward, dropped])
+            W = self.cfg.num_worlds
         # The jitted JAX iteration divides by T as a product with the f32
         # reciprocal (XLA's rewrite of a division by a constant).
         inv_t = const(1.0 / T, f32, state.alive.device)
@@ -502,7 +586,7 @@ def make_ppo_trainer(models: Sequence[ActorCritic], cfg: EnvConfig,
                      lr: float = 3e-4, max_grad_norm: float = 0.5,
                      use_kernels: bool = True, optimizer: Adam | None = None,
                      compute_dtype=None, learner_slots_per_class=None,
-                     decorrelate: bool = True, stacked: bool = False):
+                     decorrelate: bool = True, stacked: bool = False, mesh=None):
     """Returns (ppo_iteration, optimizer), as the JAX `make_ppo_trainer`:
     ppo_iteration(state, train_states, key) -> (state, train_states,
     metrics) collects `rollout_len` env steps and takes `update_epochs x
@@ -513,11 +597,18 @@ def make_ppo_trainer(models: Sequence[ActorCritic], cfg: EnvConfig,
     stacked=True trains every species through one `StackedActorCritic`
     (learner slots required): `train_states` is then the one stacked state
     (`a2c.init_stacked_train_state`), and the default optimizer
-    `make_stacked_ppo_optimizer`."""
+    `make_stacked_ppo_optimizer`.
+
+    With `mesh` (`parallel/mesh.py`) the iteration runs on this rank's
+    shard of the `cfg.num_worlds` worlds and computes the global iteration:
+    its action draws are its slices of the global draws, each minibatch is
+    its rows of the global minibatch (`shard_minibatches`), and the loss
+    denominators, advantage moments, gradients and metrics are
+    all-reduced."""
     trainer = PPOTrainer(models, cfg, optimizer, rollout_len, num_minibatches,
                          update_epochs, clip_eps, gamma, gae_lambda, vf_coef, ent_coef,
                          use_kernels, compute_dtype, learner_slots_per_class, decorrelate,
-                         stacked)
+                         stacked, mesh)
     if optimizer is None:
         optimizer = (make_stacked_ppo_optimizer(trainer.sac, lr, max_grad_norm) if stacked
                      else make_ppo_optimizer(lr, max_grad_norm))

@@ -24,7 +24,14 @@ stacked runs of either package.
 A2C losses are tracked on the card with snapshots of the improving tick's
 train state, and the files are written once a block.
 
-Not ported yet, and refused with an error: `--use_mesh`.
+`--use_mesh` shards the worlds over the processes of a torch.distributed
+group (`parallel/`): one process per card, launched by
+`torchrun --nproc_per_node=N -m madrona_bots_tpu_torch.learn.training_loop
+--use_mesh ...`; without a launcher, a group of one process in this
+process. Every rank builds or reads the same parameters, trains on its
+`num_worlds / N` worlds and all-reduces what crosses worlds, so every rank
+holds the same parameters and metrics; only rank 0 writes checkpoints and
+metrics.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from madrona_bots_tpu_torch import rng
 from madrona_bots_tpu_torch.config import EnvConfig, RewardSetting
@@ -49,6 +57,8 @@ from madrona_bots_tpu_torch.learn.ppo import (make_ppo_optimizer, make_ppo_train
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
 from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
 from madrona_bots_tpu_torch.models.stacked import StackedActorCritic
+from madrona_bots_tpu_torch.parallel import distributed
+from madrona_bots_tpu_torch.parallel.mesh import make_mesh
 
 BEST_METRICS = ("actor_loss", "critic_loss", "total_loss")
 
@@ -58,10 +68,15 @@ def construct_run_name(args) -> str:
     return f"universe_{args.universe_id}-r{args.reward_setting}"
 
 
-def _refuse_unported(args) -> None:
-    if args.use_mesh:
-        raise NotImplementedError("--use_mesh is not ported to madrona_bots_tpu_torch "
-                                  "yet; run the JAX package's CLI for it")
+class _ReadOnlyCheckpoints(CheckpointManager):
+    """A rank's checkpoints other than the coordinator's: loads, never
+    writes (not even the directory)."""
+
+    def __init__(self, base_ckpt_dir: str):
+        self.base_ckpt_dir, self.restore = base_ckpt_dir, True
+
+    def save(self, *args, **kwargs) -> None:
+        pass
 
 
 def _tree_where(cond: torch.Tensor, a, b):
@@ -115,23 +130,42 @@ def make_block(tick, ticks: int, num_species: int, ts_view, track_best: bool):
 
 
 def train(args):
-    _refuse_unported(args)
-    dev = resolve(args.device)
+    """Run the CLI; with `--use_mesh` in the process group that exists, else
+    in one this call starts (from a launcher's environment, or of one
+    process) and destroys."""
+    if not args.use_mesh:
+        return _train(args, None)
+    if dist.is_initialized():
+        return _train(args, make_mesh(args.device))
+    mesh = distributed.initialize(device=args.device)
+    try:
+        return _train(args, mesh)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, mesh):
+    dev = resolve(args.device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
     run_name = construct_run_name(args)
     cfg = EnvConfig(num_worlds=args.num_worlds, init_agents=32,
                     max_agents=args.max_agents, num_species=args.num_species,
                     reward_setting=RewardSetting(args.reward_setting))
     base_ckpt_dir = os.path.join(args.model_save_dir, f"universe_{args.universe_id}")
-    if args.create_universe and os.path.exists(base_ckpt_dir):
+    # Under a mesh the coordinator alone creates the universe, so only it
+    # can tell a universe that existed before the run.
+    if args.create_universe and writer and os.path.exists(base_ckpt_dir):
         raise FileExistsError(f"Universe {args.universe_id} already exists")
     if not args.create_universe and not os.path.exists(base_ckpt_dir):
         raise FileNotFoundError(f"Universe {args.universe_id} does not exist")
-    logger = MetricsLogger(use_wandb=args.use_wandb, run_name=run_name,
+    logger = MetricsLogger(use_wandb=args.use_wandb and writer, run_name=run_name,
                            config=vars(args),
                            jsonl_path=os.path.join(args.model_save_dir,
-                                                   f"{run_name}.metrics.jsonl"))
+                                                   f"{run_name}.metrics.jsonl")
+                           if writer else None)
 
-    ckpt = CheckpointManager(base_ckpt_dir, restore=True)
+    ckpt = (CheckpointManager(base_ckpt_dir, restore=True) if writer
+            else _ReadOnlyCheckpoints(base_ckpt_dir))
     gen = SpeciesNetGenerator(args.obs_dim, args.action_dim, args.hidden_dim,
                               args.memory_dim, seed=args.seed)
     if args.stacked and args.learner_slots is None:
@@ -187,15 +221,20 @@ def train(args):
                                    gamma=args.gamma, lr=args.lr, optimizer=optimizer,
                                    compute_dtype=compute_dtype,
                                    learner_slots_per_class=args.learner_slots,
-                                   stacked=args.stacked)
+                                   stacked=args.stacked, mesh=mesh)
     else:
         tick, _ = make_train_tick(models, cfg, lr=args.lr, gamma=args.gamma,
                                   proper_log_probs=args.proper_log_probs,
                                   quirk_compat=args.quirk_compat,
                                   compute_dtype=compute_dtype,
                                   learner_slots_per_class=args.learner_slots,
-                                  stacked=args.stacked)
-    state = init_state(cfg, args.seed, dev)
+                                  stacked=args.stacked, mesh=mesh)
+    if mesh is None:
+        state = init_state(cfg, args.seed, dev)
+    else:
+        # This rank's worlds only: equal to that slice of the full state.
+        state = init_state(cfg, args.seed, dev, worlds=mesh.world_range(cfg.num_worlds))
+        print(f"mesh: {mesh.size} devices, worlds sharded")
     key = rng.key(args.seed + 1, dev)
 
     best = {m: [float("inf")] * args.num_species for m in BEST_METRICS}
@@ -329,7 +368,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--ticks_per_block', type=int, default=1,
                         help='run N ticks per host sync (one metrics copy a '
                              'block, best tracking on the card)')
-    parser.add_argument('--use_mesh', action='store_true', help='not ported yet')
+    parser.add_argument('--use_mesh', action='store_true',
+                        help='shard worlds over the processes of a torch.distributed '
+                             'group, one a card (torchrun, or one process without a '
+                             'launcher); only rank 0 writes files')
     parser.add_argument('--compute_dtype', choices=['f32', 'bf16'],
                         default='f32', help='forward-pass precision')
     parser.add_argument('--algo', choices=['a2c', 'ppo'], default='a2c',

@@ -224,16 +224,20 @@ class ActorCritic(FlatParams):
 
 
 def compute_loss(action_log_probs, reward, prev_v, new_v, gamma: float = 1.0,
-                 mask=None):
+                 mask=None, denom=None):
     """The TD(0) loss, masked for padded slots: advantage = r + gamma V(s')
     - V(s) with both values detached; actor = -sum(logp * adv); critic =
     SmoothL1(reward, V(s_prev)), mean over the mask. Sums run over the last
-    axis, so rows [NS, N] give one loss per species."""
+    axis, so rows [NS, N] give one loss per species. `denom` replaces the
+    mask's own row count in the critic mean (a shard passes the count over
+    every rank)."""
     if mask is None:
         mask = torch.ones_like(reward)
+    if denom is None:
+        denom = mask.sum(dim=-1)
     adv = reward + gamma * new_v.detach() - prev_v.detach()
     actor_loss = -torch.sum(action_log_probs * adv * mask, dim=-1)
     diff = reward - prev_v
     huber = torch.where(diff.abs() < 1.0, 0.5 * diff * diff, diff.abs() - 0.5)
-    critic_loss = torch.sum(huber * mask, dim=-1) / torch.clamp(mask.sum(dim=-1), min=1.0)
+    critic_loss = torch.sum(huber * mask, dim=-1) / torch.clamp(denom, min=1.0)
     return actor_loss, critic_loss

@@ -73,11 +73,14 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit words [*key.shape[:-1], *shape] (jax's partitionable bits)."""
+def random_bits(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
+    """32-bit words [*key.shape[:-1], *shape] (jax's partitionable bits).
+    With `offset` the words are those of flat indices offset, offset + 1,
+    ... of a larger draw: a shard's slice of the global draw."""
     shape = tuple(shape)
     n = math.prod(shape)
-    ctr = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    ctr = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=key.device).reshape(shape)
     tail = (None,) * len(shape)
     k0 = key[(..., 0) + tail]
     k1 = key[(..., 1) + tail]
@@ -92,12 +95,13 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return fold_in(key[None], idx.reshape((num,) + (1,) * (key.dim() - 1)))
 
 
-def uniform(key: torch.Tensor, shape, minval=None, maxval=None) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape, minval=None, maxval=None,
+            offset: int = 0) -> torch.Tensor:
     """`jax.random.uniform(key, shape, float32[, minval, maxval])`; without
     bounds in [0, 1). With bounds the value is max(minval, fma(u, maxval -
     minval, minval)) in f32: XLA:CPU contracts jax's `u * span + minval`
-    into one fused multiply-add."""
-    bits = random_bits(key, shape)
+    into one fused multiply-add. `offset` as in `random_bits`."""
+    bits = random_bits(key, shape, offset)
     one_bits = (bits >> 9) | 0x3F800000
     u = one_bits.to(torch.int32).view(torch.float32) - 1.0
     if minval is None:
@@ -110,20 +114,24 @@ def uniform(key: torch.Tensor, shape, minval=None, maxval=None) -> torch.Tensor:
 _TINY = float(torch.finfo(torch.float32).tiny)
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     """`jax.random.gumbel(key, shape, float32)` in its default "low" mode:
     -log(-log(uniform(key, minval=tiny, maxval=1))). The uniform's span
-    1 - tiny rounds to 1, so the draw is u where u > 0 and tiny at u == 0."""
-    u = uniform(key, shape)
+    1 - tiny rounds to 1, so the draw is u where u > 0 and tiny at u == 0.
+    `offset` as in `random_bits`."""
+    u = uniform(key, shape, offset=offset)
     return -torch.log(-torch.log(torch.clamp(u + _TINY, min=_TINY)))
 
 
-def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(key: torch.Tensor, logits: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """`jax.random.categorical(key, logits, axis=-1)`: argmax(gumbel +
     logits) over the last axis, first index on ties; int64. Keys with
     leading axes [*K, 2] draw `jax.vmap(jax.random.categorical)` over
-    logits [*K, ...]: each key its own slice, as one chain of launches."""
-    return torch.argmax(gumbel(key, logits.shape[key.dim() - 1:]) + logits, dim=-1)
+    logits [*K, ...]: each key its own slice, as one chain of launches.
+    `offset` is the flat index, in each key's global draw, of the first
+    element of these logits: a rank that holds rows [r0, r1) of a global
+    [R, n] draw passes r0 * n and draws exactly its rows of it."""
+    return torch.argmax(gumbel(key, logits.shape[key.dim() - 1:], offset) + logits, dim=-1)
 
 
 def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The port's training CLI on the CPU: create a universe, train, restore
 and go on (A2C and PPO); the same universe and metric names as the JAX
-package's CLI; PPO universes load in either package; the unported mode
-(--use_mesh) refused. Stacked and block modes: tests/test_torch_block.py."""
+package's CLI; PPO universes load in either package; --use_mesh in one
+process writes what the run without it writes. Stacked and block modes:
+tests/test_torch_block.py."""
 
 import json
 import os
@@ -74,12 +75,33 @@ def test_universe_and_metric_keys_match_jax_cli(port_run, tmp_path):
     assert set(metric_rows(d, "u")[0]) == set(metric_rows(t, "u")[0])
 
 
-@pytest.mark.parametrize("flags", [["--use_mesh"]])
-def test_unported_modes_refused(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(BASE + ["--device", "cpu", "--model_save_dir", str(tmp_path),
-                         "--create_universe"] + flags)
-    assert not os.path.exists(tmp_path / "universe_luc")
+@pytest.mark.parametrize("flags", [["--use_mesh"], ["--use_mesh"] + PPO,
+                                   ["--use_mesh", "--stacked", "--ticks_per_block", "2"]])
+def test_unported_modes_refused(tmp_path, flags, capsys):
+    """No mode is refused any more: --use_mesh without a launcher runs a
+    group of one process in this process, prints the JAX CLI's mesh line,
+    destroys the group, and writes the files of the run without it, in
+    bits (metrics but their clock readings), with A2C, PPO and the
+    stacked update in blocks."""
+    import torch.distributed as dist
+
+    for d, extra in (("mesh", flags), ("plain", [f for f in flags if f != "--use_mesh"])):
+        cli.main(BASE + ["--device", "cpu", "--model_save_dir", str(tmp_path / d),
+                         "--num_epochs", "2", "--create_universe"] + extra)
+    assert "mesh: 1 devices, worlds sharded" in capsys.readouterr().out
+    assert not dist.is_initialized()
+    assert files(tmp_path / "mesh") == files(tmp_path / "plain")
+    for name in files(tmp_path / "mesh"):
+        if name.endswith(".npz"):
+            with np.load(tmp_path / "mesh" / name) as a, np.load(tmp_path / "plain" / name) as b:
+                assert sorted(a.files) == sorted(b.files)
+                for k in a.files:
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=f"{name} {k}")
+    clock = ("_t", "epoch_fps")
+    assert ([{k: v for k, v in r.items() if k not in clock}
+             for r in metric_rows(tmp_path / "mesh", "luc")]
+            == [{k: v for k, v in r.items() if k not in clock}
+                for r in metric_rows(tmp_path / "plain", "luc")])
 
 
 def test_universe_existence_checks(port_run, tmp_path):
