@@ -5,6 +5,7 @@ one CUDA card and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-cards 4     # phase 11 (b) alone on 4 cards
+    python3 chip_smoke.py --lcurve           # phase 12 alone
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build the three kernels from madrona_bots_tpu_torch/csrc (nvcc, in
@@ -107,6 +108,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and 16 an iteration per rank; ms a tick and an iteration for one
      process and for each rank, all-reduces a tick, and the all-reduce
      alone.
+  12. the learning-curve drivers (`tools/lcurve.py`) at their widths: A2C
+     at 2048 worlds (raw-logit, bf16, 12 learner slots, quirk_compat), 2
+     blocks of 8 epochs straight, and PPO at 8192 worlds (bf16, rollout
+     16, 1 x 8, 8 slots), 2 blocks of 2 iterations straight; each again as
+     1 block, a resume point, a new driver that resumes from it, 1 block:
+     series, parameters, Adam state and world state equal in bits to the
+     straight run; one launch of each kernel a tick and 16 an iteration in
+     the straight runs; epochs/s and env-steps/s.
 
 Prints a `kernels` JSON line (each row's `launches` from its main path's
 run, `ppo_launches` in a PPO iteration at the bench shape,
@@ -115,7 +124,8 @@ PPO iteration, `manager_launches` in the 32 timed manager steps (rows
 systems and raycast), `driver_launches` in the 4-world web viewer's and the
 1-world test driver's two steps (rows raycast_packed and raycast_blocked),
 `mesh_launches` by one rank in the mesh phase's counted runs (8 steps, 2 + 2
-ticks, 1 iteration)),
+ticks, 1 iteration), `lcurve_launches` in the learning-curve phase's two
+straight runs (16 A2C epochs, 4 PPO iterations)),
 the card's
 name and power limit, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the package beside it. Timings use CUDA events; a
@@ -135,6 +145,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -159,6 +170,13 @@ LEGACY_WORLDS, LEGACY_EPOCHS = 2048, 32     # learn/env.py's width; 32 of its 10
 LR = 3e-4
 DEVICE = "cuda"
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def name_and_power() -> list:
+    """Each card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
 
 
 def log(msg: str) -> None:
@@ -186,9 +204,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = name_and_power()[0]
     log(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
@@ -497,6 +513,14 @@ def main() -> int:
         k["mesh_launches"] = mesh_launches[kernel_of[k["name"]]] if k["name"] in kernel_of else 0
     log("[mesh] launches by one rank in its counted runs, by kernel row: "
         + json.dumps({k["name"]: k["mesh_launches"] for k in kernels}))
+
+    # ---- 12. the learning-curve drivers ----
+    lcurve_launches = lcurve_phase(dev, smi)
+    for k in kernels:
+        k["lcurve_launches"] = (lcurve_launches[kernel_of[k["name"]]]
+                                if k["name"] in kernel_of else 0)
+    log("[lcurve] launches in the two straight runs, by kernel row: "
+        + json.dumps({k["name"]: k["lcurve_launches"] for k in kernels}))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -2691,6 +2715,95 @@ def mesh_report(one: dict, ranks: list, conf: dict) -> dict:
         + f" (gradients: {one['param_count']} f32, the loop's four species)")
     return ranks[0]["launches"]
 
+
+LCURVE_A2C = dict(worlds=2048, block=8)      # lcurve_seeds.py's width; 2 blocks of 8 epochs
+LCURVE_PPO = dict(worlds=W, block=2)         # ppo_multiseed_r5.py's; 2 blocks of 2 iterations
+
+
+def lcurve_phase(dev, smi: str) -> dict:
+    """[lcurve]: each driver straight for 2 blocks with the launches
+    counted, then 1 block, a resume point, a new driver resuming from it
+    and 1 block: equal in bits to the straight run (series, parameters,
+    Adam state, world state). Returns each kernel's launches over the two
+    straight runs."""
+    from madrona_bots_tpu_torch.env.state import FIELDS
+    from madrona_bots_tpu_torch.tools import lcurve
+
+    root = os.path.join(REPO, "build", "lcurve_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    total = {"systems": 0, "raycast": 0, "row_gather": 0}
+    specs = (lcurve.a2c_spec("raw_logit", 0, epochs=2 * LCURVE_A2C["block"], **LCURVE_A2C),
+             lcurve.ppo_spec(0, iters=2 * LCURVE_PPO["block"], **LCURVE_PPO))
+    for spec in specs:
+        ppo = spec.algo == "ppo"
+        torch.cuda.synchronize()
+        reset_launches()
+        straight = lcurve.Driver(spec, dev).start()
+        straight.advance()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        per = spec.steps * (spec.rollout if ppo else 1)
+        check(launches == {"systems": per, "raycast": per, "row_gather": per},
+              f"[lcurve] {spec.name}: launches {launches}, want {per} each")
+        for k, v in launches.items():
+            total[k] += v
+        t0 = time.perf_counter()
+        first = lcurve.Driver(spec, dev, root).start()
+        first.advance(max_blocks=1)
+        del first
+        resumed = lcurve.Driver(spec, dev, root).start()
+        t_resume = time.perf_counter() - t0
+        check(resumed.next_block == 1 and resumed.calls == 2,
+              f"[lcurve] {spec.name}: resumed at block {resumed.next_block}")
+        resumed.advance()
+        torch.cuda.synchronize()
+        bad = []
+        if straight.series.tobytes() != resumed.series.tobytes():
+            bad.append("series")
+        for i, (a, b) in enumerate(zip(straight.train_states, resumed.train_states)):
+            for name, x, y in (("params", a.params, b.params), ("mu", a.opt_state.mu,
+                               b.opt_state.mu), ("nu", a.opt_state.nu, b.opt_state.nu),
+                               ("count", a.opt_state.count, b.opt_state.count)):
+                if x.cpu().numpy().tobytes() != y.cpu().numpy().tobytes():
+                    bad.append(f"species {i + 1} {name}")
+        for f in FIELDS:
+            if (getattr(straight.state, f).cpu().numpy().tobytes()
+                    != getattr(resumed.state, f).cpu().numpy().tobytes()):
+                bad.append(f)
+        finite = bool(np.isfinite(straight.series).all())
+        steps_s = spec.steps / straight.seconds
+        env_s = spec.steps * (spec.rollout if ppo else 1) * spec.worlds / straight.seconds
+        unit = "iterations" if ppo else "epochs"
+        log(f"[lcurve] {spec.name}: {spec.steps // spec.block} blocks of {spec.block} {unit} "
+            f"straight at {spec.worlds} worlds: {steps_s:.2f} {unit}/s, {env_s:.1f} "
+            f"env-steps/s (host clock, first block included) on {smi}; launches "
+            f"{json.dumps(launches)}; 1 + resume + 1 ({t_resume:.1f} s to write, drop and "
+            f"reload the point) vs straight: {len(bad)} fields differ in bits "
+            f"{bad[:8]}; series finite {finite}")
+        check(not bad, f"[lcurve] {spec.name}: resumed differs from straight in {bad}")
+        check(finite, f"[lcurve] {spec.name}: series not finite")
+        del straight, resumed
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def lcurve_only() -> int:
+    """`chip_smoke.py --lcurve`: [build] and [lcurve] alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --lcurve: no CUDA device", file=sys.stderr)
+        return 1
+    from madrona_bots_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = name_and_power()[0]
+    log(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[build] in {_build.build()[0]:.1f} s")
+    launches = lcurve_phase(torch.device(DEVICE), smi)
+    log(f"[lcurve] launches in the two straight runs: {json.dumps(launches)}")
+    return 0
+
+
 def mesh_cards(n: int) -> int:
     """`chip_smoke.py --mesh-cards N`: [mesh] (b) alone, one process a card
     on N cards (NCCL), against one process on the first card."""
@@ -2700,9 +2813,7 @@ def mesh_cards(n: int) -> int:
     from madrona_bots_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
+    smi = name_and_power()
     log(f"devices: {'; '.join(smi)} | torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"[build] in {_build.build()[0]:.1f} s")
     launches = mesh_phase(torch.device(DEVICE), conf=dict(ranks=n), cli=False)
@@ -2715,4 +2826,6 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-cards"]:
         sys.exit(mesh_cards(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--lcurve"]:
+        sys.exit(lcurve_only())
     sys.exit(main())
