@@ -1,0 +1,8 @@
+"""The raycast's bound (bytes or FP32 operations of the traced steps) over
+its kernel's mean traced device time, in %."""
+
+from portbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "raycast_kernel", "raycast_bound_s")
