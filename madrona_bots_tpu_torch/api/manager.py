@@ -9,8 +9,8 @@ tensors in species-major row order, and `set_action`.
 Everything stays on the manager's device. `step()` runs the port's env step
 (on CUDA tensors the systems and raycast kernels, one launch each), then
 builds the export order on the device (`utils/native.compaction`, whose
-species starts are the step's one planned copy to the host, as the
-reference reads its offsets back, mgr.cpp:57-62). Each exported tensor is
+species starts are copied to the host, as the reference reads its offsets
+back, mgr.cpp:57-62). Each exported tensor is
 one `index_select` of the flattened field at that order, in the field's own
 dtype, made on first access and cached until the next step.
 
@@ -20,6 +20,12 @@ every step and shift, so a tensor fetched once stays live, and scattered
 back into the state before the next step or shift, so writes into them
 reach the simulator, as the reference's zero-copy device exports do
 (training_loop.py:136-137).
+
+Spans (`utils/profiling.span`, recorded only under a profiler) mark the
+step, the write-back, the order, the refresh, each export built and the
+shift; every blocking device-to-host read is a `profiling.host_sync` site,
+counted in `host_syncs`. A step plus the 12 getters reads the device twice:
+the species starts and `sensor_index_tensor`'s `nonzero`.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from madrona_bots_tpu_torch.config import EnvConfig, NUM_ACTIONS
 from madrona_bots_tpu_torch.device import resolve
 from madrona_bots_tpu_torch.env import env as env_mod
 from madrona_bots_tpu_torch.env.state import WorldState, init_state
-from madrona_bots_tpu_torch.utils import native
+from madrona_bots_tpu_torch.utils import native, profiling
 
 
 class Tensor:
@@ -51,7 +57,8 @@ class Tensor:
         return self._tensor
 
     def to_numpy(self) -> np.ndarray:
-        return self._tensor.cpu().numpy()
+        with profiling.host_sync("to_numpy"):
+            return self._tensor.cpu().numpy()
 
     @property
     def shape(self):
@@ -97,24 +104,28 @@ class SimManager:
     # ---- stepping (Manager::step, mgr.cpp:51-63) ----
 
     def step(self):
-        self._flush_writes()
-        self.state = env_mod.step(self.state, self.cfg, self.use_kernels)
-        self._recompute_order()
-        self._refresh_exports()
+        profiling.count("steps")
+        with profiling.span("mbots.manager.step"):
+            self._flush_writes()
+            self.state = env_mod.step(self.state, self.cfg, self.use_kernels)
+            self._recompute_order()
+            self._refresh_exports()
 
     def shift_observations(self):
-        self._flush_writes()
-        self.state = env_mod.shift_observations(self.state, self.cfg)
-        self._cache.clear()
-        self._refresh_exports()
+        with profiling.span("mbots.manager.shift"):
+            self._flush_writes()
+            self.state = env_mod.shift_observations(self.state, self.cfg)
+            self._cache.clear()
+            self._refresh_exports()
 
     # ---- export order ----
 
     def _recompute_order(self):
-        self._perm, self._species_starts = native.compaction(
-            self.state.alive, self.state.species, self.cfg.num_species)
-        self._perm_world = None
-        self._cache.clear()
+        with profiling.span("mbots.manager.order"):
+            self._perm, self._species_starts = native.compaction(
+                self.state.alive, self.state.species, self.cfg.num_species)
+            self._perm_world = None
+            self._cache.clear()
 
     @property
     def total_num_agents(self) -> int:
@@ -124,7 +135,8 @@ class SimManager:
     def agent_offset_for_world(self, world_idx: int) -> int:
         """World-major row offset (Manager::agentOffsetForWorld, mgr.cpp:274)."""
         offsets, _ = native.world_offsets(self.state.alive)
-        return int(offsets[world_idx])
+        with profiling.host_sync("world_offset"):
+            return int(offsets[world_idx])
 
     def species_offsets(self) -> np.ndarray:
         """Per-species start rows of the exports, [NS + 1] int32 on the host:
@@ -136,9 +148,10 @@ class SimManager:
 
     def _gather(self, name: str, field: torch.Tensor, dtype=None) -> Tensor:
         if name not in self._cache:
-            rows = field.reshape((-1,) + tuple(field.shape[2:]))
-            out = native.gather_rows(rows, self._perm)
-            self._cache[name] = out if dtype is None else out.to(dtype)
+            with profiling.span("mbots.manager.gather"):
+                rows = field.reshape((-1,) + tuple(field.shape[2:]))
+                out = native.gather_rows(rows, self._perm)
+                self._cache[name] = out if dtype is None else out.to(dtype)
         return Tensor(self._cache[name])
 
     def depth_tensor(self, is_prev: bool = False) -> Tensor:
@@ -206,17 +219,21 @@ class SimManager:
 
     def done_tensor(self) -> Tensor:
         """Always zeros: worlds never reset (quirk Q7, sim.cpp:302-305)."""
-        return Tensor(torch.zeros((self.total_num_agents, 1), dtype=torch.int32,
-                                  device=self.device))
+        with profiling.span("mbots.manager.gather"):
+            return Tensor(torch.zeros((self.total_num_agents, 1), dtype=torch.int32,
+                                      device=self.device))
 
     def sensor_index_tensor(self) -> Tensor:
         """[N, 1] int32: world-major agent index -> exported row (the
         SensorOutputIndex indirection, sim.cpp:736-789)."""
         if "sensor_index" not in self._cache:
-            if self._perm_world is None:
-                self._perm_world = torch.nonzero(self.state.alive.reshape(-1))[:, 0]
-            inv = native.inverse_perm(self._perm, self.cfg.num_worlds * self.cfg.max_agents)
-            self._cache["sensor_index"] = inv[self._perm_world][:, None]
+            with profiling.span("mbots.manager.gather"):
+                if self._perm_world is None:
+                    with profiling.host_sync("nonzero"):
+                        self._perm_world = torch.nonzero(self.state.alive.reshape(-1))[:, 0]
+                inv = native.inverse_perm(self._perm,
+                                          self.cfg.num_worlds * self.cfg.max_agents)
+                self._cache["sensor_index"] = inv[self._perm_world][:, None]
         return Tensor(self._cache["sensor_index"])
 
     def set_action(self, agent_idx: int, forward: int, backward: int,
@@ -232,28 +249,32 @@ class SimManager:
 
     def _export_buffer(self, field: torch.Tensor) -> torch.Tensor:
         """A persistent [W * A, d] export buffer, its first n rows filled."""
-        rows = field.reshape(-1, field.shape[-1])
-        buf = torch.zeros_like(rows)
-        buf[: self.total_num_agents] = native.gather_rows(rows, self._perm)
-        return buf
+        with profiling.span("mbots.manager.gather"):
+            rows = field.reshape(-1, field.shape[-1])
+            buf = torch.zeros_like(rows)
+            buf[: self.total_num_agents] = native.gather_rows(rows, self._perm)
+            return buf
 
     def _flush_writes(self):
         """Scatter the export buffers into zeroed [W, A, d] fields that replace
         the state's action / hidden: whatever was written into them since the
         last step or shift reaches the simulator here. A buffer is never
         aliased into the state, which the systems kernel writes in place."""
-        n = self.total_num_agents
-        for name, buf in (("action", self._action_buf), ("hidden", self._hidden_buf)):
-            if buf is not None:
-                field = torch.zeros_like(getattr(self.state, name))
-                native.scatter_rows(buf[:n], self._perm, field.view(-1, field.shape[-1]))
-                self.state = self.state.replace(**{name: field})
+        with profiling.span("mbots.manager.flush"):
+            n = self.total_num_agents
+            for name, buf in (("action", self._action_buf), ("hidden", self._hidden_buf)):
+                if buf is not None:
+                    field = torch.zeros_like(getattr(self.state, name))
+                    native.scatter_rows(buf[:n], self._perm, field.view(-1, field.shape[-1]))
+                    self.state = self.state.replace(**{name: field})
 
     def _refresh_exports(self):
         """Refill the export buffers in place from the state in the current
         export order, so tensors fetched once stay live across steps."""
-        n = self.total_num_agents
-        for buf, field in ((self._action_buf, self.state.action),
-                           (self._hidden_buf, self.state.hidden)):
-            if buf is not None:
-                buf[:n] = native.gather_rows(field.reshape(-1, field.shape[-1]), self._perm)
+        with profiling.span("mbots.manager.refresh"):
+            n = self.total_num_agents
+            for buf, field in ((self._action_buf, self.state.action),
+                               (self._hidden_buf, self.state.hidden)):
+                if buf is not None:
+                    buf[:n] = native.gather_rows(field.reshape(-1, field.shape[-1]),
+                                                 self._perm)

@@ -30,6 +30,7 @@ from madrona_bots_tpu_torch.config import NUM_ACTIONS, EnvConfig
 from madrona_bots_tpu_torch.env import systems as sy
 from madrona_bots_tpu_torch.env.state import FIELDS
 from madrona_bots_tpu_torch.ops import _build
+from madrona_bots_tpu_torch.utils import profiling
 
 i32 = torch.int32
 f32 = torch.float32
@@ -267,35 +268,37 @@ def step_systems_cuda(state, cfg: EnvConfig):
     state, written in place into it. Returns `state` itself, with a new
     `step_count` tensor (every block of the launch reads the old one). A
     CPU state takes `step_systems_plain`. Every field must have its dtype
-    and shape; the kernel also needs them contiguous on the state's card."""
+    and shape; the kernel also needs them contiguous on the state's card.
+    The call is the span `mbots.env.systems`."""
     global launches
-    W = state.alive.shape[0]
-    setup = _setup(cfg, W)
-    fields = setup.get_fields(state)
-    if state.alive.device.type == "cpu":
+    with profiling.span("mbots.env.systems"):
+        W = state.alive.shape[0]
+        setup = _setup(cfg, W)
+        fields = setup.get_fields(state)
+        if state.alive.device.type == "cpu":
+            for i, (t, spec) in enumerate(zip(fields, setup.specs)):
+                if t.dtype is not spec[0] or t.shape != spec[1]:
+                    raise _bad_field(i, t, spec, "")
+            return step_systems_plain(state, cfg)
+        dev = state.alive.get_device()
+        if dev < 0:
+            raise ValueError(f"systems kernel: state on {state.alive.device}")
+        if cfg.max_agents > 1024:
+            raise ValueError(f"systems kernel: needs max_agents <= 1024, got {cfg.max_agents}")
         for i, (t, spec) in enumerate(zip(fields, setup.specs)):
-            if t.dtype is not spec[0] or t.shape != spec[1]:
-                raise _bad_field(i, t, spec, "")
-        return step_systems_plain(state, cfg)
-    dev = state.alive.get_device()
-    if dev < 0:
-        raise ValueError(f"systems kernel: state on {state.alive.device}")
-    if cfg.max_agents > 1024:
-        raise ValueError(f"systems kernel: needs max_agents <= 1024, got {cfg.max_agents}")
-    for i, (t, spec) in enumerate(zip(fields, setup.specs)):
-        if (t.dtype is not spec[0] or t.shape != spec[1] or not t.is_contiguous()
-                or t.get_device() != dev):
-            raise _bad_field(i, t, spec, f"contiguous cuda:{dev} ")
-    step_next = torch.empty((), dtype=i32, device=state.alive.device)
-    ptrs = array.array("Q", [t.data_ptr() for t in fields])
-    ptrs.append(step_next.data_ptr())
-    fn = _build.function("systems", "mbots_step_systems", _ARGS)
-    # The raw handle of the current stream (torch.cuda.current_stream(dev)
-    # .cuda_stream without building a Stream object on every step).
-    err = fn(ptrs.buffer_info()[0], setup.params_addr, W,
-             torch._C._cuda_getCurrentRawStream(dev))
-    if err != 0:
-        raise RuntimeError(f"systems kernel launch failed: CUDA error {err}")
-    launches += 1
-    state.step_count = step_next
-    return state
+            if (t.dtype is not spec[0] or t.shape != spec[1] or not t.is_contiguous()
+                    or t.get_device() != dev):
+                raise _bad_field(i, t, spec, f"contiguous cuda:{dev} ")
+        step_next = torch.empty((), dtype=i32, device=state.alive.device)
+        ptrs = array.array("Q", [t.data_ptr() for t in fields])
+        ptrs.append(step_next.data_ptr())
+        fn = _build.function("systems", "mbots_step_systems", _ARGS)
+        # The raw handle of the current stream (torch.cuda.current_stream(dev)
+        # .cuda_stream without building a Stream object on every step).
+        err = fn(ptrs.buffer_info()[0], setup.params_addr, W,
+                 torch._C._cuda_getCurrentRawStream(dev))
+        if err != 0:
+            raise RuntimeError(f"systems kernel launch failed: CUDA error {err}")
+        launches += 1
+        state.step_count = step_next
+        return state

@@ -4,8 +4,8 @@ Counterpart of `madrona_bots_tpu/utils/native.py`, whose host library
 (`native/mbots_host.cpp`, through ctypes) builds the species-major export
 permutation, the per-world offset table and the export gather / write-back
 scatter on numpy arrays. Here the same functions take torch tensors and run
-where the state lives, so on the card nothing but the species starts crosses
-to the host. No host library and no numpy branch: the same code runs on
+where the state lives; of them only `compaction` reads the device, for the
+species starts. No host library and no numpy branch: the same code runs on
 either device.
 """
 
@@ -15,6 +15,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from madrona_bots_tpu_torch.utils import profiling
 
 
 def compaction(alive: torch.Tensor, species: torch.Tensor, num_species: int
@@ -37,7 +39,9 @@ def compaction(alive: torch.Tensor, species: torch.Tensor, num_species: int
                        num_species + 1).to(torch.uint8)
     sorted_keys, order = torch.sort(keys, stable=True)
     bounds = torch.arange(1, num_species + 2, dtype=torch.uint8, device=keys.device)
-    starts = torch.searchsorted(sorted_keys, bounds).to(torch.int32).cpu().numpy()
+    starts = torch.searchsorted(sorted_keys, bounds).to(torch.int32)
+    with profiling.host_sync("species_starts"):
+        starts = starts.cpu().numpy()
     return order[: int(starts[-1])], starts
 
 

@@ -1,69 +1,73 @@
-"""Profiling helpers.
+"""Profiling: spans and counters inside the port, and a trace for TensorBoard.
 
 Counterpart of `madrona_bots_tpu/utils/profiling.py`. The reference's only
-tracing is wall-clock step timing streamed to wandb (SURVEY §5); here the
-same light timer, and a `torch.profiler` trace of the host and the card,
-written for TensorBoard, when asked for.
+tracing is wall-clock step timing streamed to wandb (SURVEY §5). Here:
+
+- `span(name)`: an event of the recording profiler's own (`RecordFunction`,
+  as `torch.compile`'s generated code annotates its calls), else one shared
+  no-op context. The events carry the profiler's timestamps, so they line
+  up with the device operations of the same trace, and the runtime calls
+  made inside them carry the correlation ids of the operations they launch.
+  Parents come from nesting on one thread. The port's spans are named
+  `mbots.<layer>.<part>`.
+- `count(name, n)`: always-on integer counters in one process-wide table,
+  read with `counts()` without a profiler. The SimManager counts `steps`
+  and `host_syncs` (each blocking device-to-host read, `host_sync`).
+- `device_trace(logdir)`: a profiler over a block, written for TensorBoard,
+  so an operator sees the spans beside the host and card timelines.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
-
-def _cuda_devices(out) -> set:
-    """The CUDA devices of the tensors in `out` (nested tuples, lists and
-    dicts)."""
-    if isinstance(out, torch.Tensor):
-        return {out.device} if out.is_cuda else set()
-    if isinstance(out, dict):
-        out = list(out.values())
-    if isinstance(out, (list, tuple)):
-        return set().union(*(_cuda_devices(o) for o in out)) if out else set()
-    if hasattr(out, "__dataclass_fields__"):
-        return _cuda_devices([getattr(out, f) for f in out.__dataclass_fields__])
-    return set()
+_OFF = contextlib.nullcontext()
+_event = torch._C._profiler._RecordFunctionFast
+_counts: Dict[str, int] = {}
 
 
-class StepTimer:
-    """Wall-clock timing of calls.
+def span(name: str):
+    """A context that records its block as the event `name` in a recording
+    profiler, else a shared no-op. The check reads the flag that torch's
+    profilers set on start and clear on stop (a module attribute: the C
+    query costs twice the whole no-op span). Under the profiler the C++
+    event costs about a tenth of `torch.profiler.record_function`, whose
+    enter and exit are two profiled operator calls."""
+    return _event(name) if _autograd_profiler._is_profiler_enabled else _OFF
 
-    `timed(fn, *args)` runs fn, waits for the devices of its result's CUDA
-    tensors, records the elapsed time and returns the result. (A context
-    manager cannot see the body's output: with asynchronous launches it
-    would record the enqueue, not the execution.)"""
 
-    def __init__(self):
-        self.times: List[float] = []
+def count(name: str, n: int = 1) -> None:
+    _counts[name] = _counts.get(name, 0) + n
 
-    def timed(self, fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        for dev in _cuda_devices(out):
-            torch.cuda.synchronize(dev)
-        self.times.append(time.perf_counter() - t0)
-        return out
 
-    def fps(self, num_worlds: int, skip_first: int = 1) -> float:
-        ts = self.times[skip_first:] or self.times
-        return num_worlds / (sum(ts) / len(ts))
+def counts() -> Dict[str, int]:
+    """A copy of the counters since the process started or `reset_counts`."""
+    return dict(_counts)
 
-    def summary(self) -> Dict[str, float]:
-        ts = self.times[1:] or self.times
-        return {"mean_s": sum(ts) / len(ts), "min_s": min(ts),
-                "max_s": max(ts), "n": len(ts)}
+
+def reset_counts() -> None:
+    _counts.clear()
+
+
+def host_sync(site: str):
+    """A blocking device-to-host read at `site`: counted in `host_syncs` on
+    every device (on the CPU the read does not block, but the site is the
+    same) and spanned as `mbots.sync.<site>`, so a trace shows the host's
+    wait on the device."""
+    count("host_syncs")
+    return span("mbots.sync." + site)
 
 
 @contextlib.contextmanager
 def device_trace(logdir: Optional[str]):
     """A torch.profiler trace of the host and, where there is one, the card,
-    written to `logdir` for TensorBoard. Does nothing if logdir is falsy, so
-    call sites can be unconditional."""
+    written to `logdir` for TensorBoard, with the port's `mbots.*` spans.
+    Does nothing if logdir is falsy, so call sites can be unconditional."""
     if not logdir:
         yield
         return

@@ -1,40 +1,158 @@
-"""The port's profiling helpers and tools: `utils/profiling.py`,
-`tools/prof.py` (CUDA only) and `tools/plot_curves.py` (its series equal the
-JAX package's)."""
+"""The port's profiling helpers and tools: `utils/profiling.py` (spans,
+counters and the TensorBoard trace, with the SimManager's spans and sync
+sites), `tools/prof.py` (CUDA only) and `tools/plot_curves.py` (its series
+equal the JAX package's)."""
 
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from madrona_bots_tpu.tools import plot_curves as jplot
+from madrona_bots_tpu_torch.api import SimManager
+from madrona_bots_tpu_torch.env.state import FIELDS
 from madrona_bots_tpu_torch.tools import plot_curves, prof
-from madrona_bots_tpu_torch.utils.profiling import StepTimer, device_trace
+from madrona_bots_tpu_torch.utils import profiling
+from madrona_bots_tpu_torch.utils.profiling import device_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CURVES = os.path.join(REPO, "artifacts", "lcurve", "multiseed_r3.jsonl")
 
+NINE = ("depth", "semantic", "reward", "position", "health", "surrounding", "action",
+        "stats", "hidden_state")
+STEP_SPANS = ("mbots.manager.step", "mbots.manager.flush", "mbots.env.systems",
+              "mbots.env.raycast", "mbots.manager.order", "mbots.manager.refresh",
+              "mbots.manager.gather", "mbots.manager.shift", "mbots.sync.species_starts",
+              "mbots.sync.nonzero")
+"""The spans of one benchmark-shaped call."""
 
-def test_step_timer():
-    t = StepTimer()
-    x = torch.ones(64)
-    for _ in range(3):
-        out = t.timed(lambda a: {"y": [a * 2, (a + 1,)]}, x)
-    assert float(out["y"][0].sum()) == 128.0
-    assert len(t.times) == 3 and all(s >= 0 for s in t.times)
-    s = t.summary()
-    assert s["n"] == 2 and s["min_s"] <= s["mean_s"] <= s["max_s"]
-    assert t.fps(8) > 0
+
+def manager(seed=5):
+    return SimManager(0, 4, seed, 32, device="cpu")
+
+
+def benchmark_call(mgr, i):
+    """What the SimManager loop of upstream users does in a call: one-hot
+    actions into `action_tensor`, a step, the 12 getters, the shift."""
+    act = mgr.action_tensor().to_torch()
+    gen = torch.Generator().manual_seed(i)
+    act.copy_(torch.nn.functional.one_hot(torch.randint(0, 6, (act.shape[0],), generator=gen),
+                                          6).to(torch.int32))
+    mgr.step()
+    out = [mgr.species_count_tensor().to_torch(), mgr.done_tensor().to_torch(),
+           mgr.sensor_index_tensor().to_torch()]
+    out += [getattr(mgr, f"{n}_tensor")(False).to_torch().clone() for n in NINE]
+    mgr.shift_observations()
+    return out
+
+
+def program_spans(prof):
+    """{span name: [(start, end)]} of a finished profiler's `mbots.*` events."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("mbots."):
+            out.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    return out
+
+
+def within(inner, outer):
+    """Each of `inner`'s intervals lies inside one of `outer`'s."""
+    return all(any(s0 <= s and e <= e0 for s0, e0 in outer) for s, e in inner)
+
+
+def test_span_off_is_the_shared_noop_and_counters_count(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a profiler event {name!r} with no profiler recording")
+    monkeypatch.setattr(profiling, "_event", refuse)
+    a, b = profiling.span("mbots.manager.step"), profiling.span("mbots.env.raycast")
+    assert a is b
+    with a, b:
+        pass
+    profiling.reset_counts()
+    profiling.count("steps")
+    profiling.count("steps", 3)
+    with profiling.host_sync("nonzero"):
+        pass
+    got = profiling.counts()
+    assert got == {"steps": 4, "host_syncs": 1}
+    got["steps"] = 0
+    assert profiling.counts()["steps"] == 4
+    profiling.reset_counts()
+    assert profiling.counts() == {}
+
+
+def test_span_under_a_profiler_is_a_profiler_event():
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        with profiling.span("mbots.a"):
+            with profiling.span("mbots.b"):
+                torch.ones(4).add_(1)
+    spans = program_spans(p)
+    assert set(spans) == {"mbots.a", "mbots.b"}
+    assert within(spans["mbots.b"], spans["mbots.a"])
+
+
+def test_benchmark_call_emits_every_span_nested():
+    mgr = manager()
+    benchmark_call(mgr, 0)
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        benchmark_call(mgr, 1)
+    call = program_spans(p)
+    assert set(call) == set(STEP_SPANS)
+    assert len(call["mbots.manager.step"]) == 1 and len(call["mbots.sync.species_starts"]) == 1
+    for name in ("mbots.env.systems", "mbots.env.raycast", "mbots.manager.order",
+                 "mbots.manager.flush", "mbots.manager.refresh"):
+        assert within(call[name][:1], call["mbots.manager.step"]), name
+    assert within(call["mbots.sync.species_starts"], call["mbots.manager.order"])
+    assert within(call["mbots.sync.nonzero"], call["mbots.manager.gather"])
+    # a step plus the 12 getters: 9 exports built (depth, semantic, reward,
+    # position, health, surrounding, stats, done, sensor index)
+    assert len(call["mbots.manager.gather"]) == 9
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        mgr.agent_offset_for_world(1)
+        mgr.depth_tensor(False).to_numpy()
+    assert set(program_spans(p)) == {"mbots.sync.world_offset", "mbots.manager.gather",
+                                   "mbots.sync.to_numpy"}
+
+
+def test_host_syncs_two_per_benchmark_call():
+    mgr = manager()
+    benchmark_call(mgr, 0)
+    profiling.reset_counts()
+    for i in range(3):
+        benchmark_call(mgr, i)
+    assert profiling.counts() == {"steps": 3, "host_syncs": 6}
+    mgr.agent_offset_for_world(2)
+    mgr.position_tensor(True).to_numpy()
+    assert profiling.counts() == {"steps": 3, "host_syncs": 8}
+
+
+def test_profiler_leaves_the_run_unchanged():
+    plain, traced = manager(9), manager(9)
+    for i in range(3):
+        want = benchmark_call(plain, i)
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = benchmark_call(traced, i)
+        for w, g in zip(want, got):
+            assert w.dtype == g.dtype and torch.equal(w, g)
+    for f in FIELDS:
+        assert torch.equal(getattr(plain.state, f), getattr(traced.state, f)), f
 
 
 def test_device_trace(tmp_path):
     with device_trace(None):
         y = torch.ones(4) + 1
     assert float(y.sum()) == 8.0
+    mgr = manager()
     with device_trace(str(tmp_path)):
-        torch.ones(256, 256) @ torch.ones(256, 256)
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
+        mgr.step()
+    files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    assert files
+    with open(tmp_path / files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"mbots.manager.step", "mbots.env.raycast", "mbots.sync.species_starts"} <= names
 
 
 def test_prof_needs_cuda():
