@@ -8,7 +8,7 @@ one CUDA card and check them.
     python3 chip_smoke.py --lcurve           # phase 12 alone
 
 Phases (any failure ends the run with a non-zero exit and no result line):
-  1. build the three kernels from madrona_bots_tpu_torch/csrc (nvcc, in
+  1. build the four kernels from madrona_bots_tpu_torch/csrc (nvcc, in
      parallel);
   2. the whole-step systems kernel (one launch: food spawn, action system,
      the per-world chain, the post-pass) against its plain version on clones
@@ -58,10 +58,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      8 warm-up and 32 timed steps, each writing random one-hot actions
      through `action_tensor().to_torch()`, reading the 12 getters and
      shifting the observations, then 32 without the getters (ms a step by
-     CUDA events; one systems and one raycast launch a step); every export
+     CUDA events; one systems and one raycast launch a step, five launches
+     of the export-row kernel with the getters and four without); every export
      against a gather of the state at a permutation built on the host with
-     numpy; 8 steps on the kernel and on the plain path agree in every
-     export (`surrounding` within its tolerance);
+     numpy; 8 steps on the kernel and on the plain path (`use_kernels=False`:
+     no launch of any kernel) agree in every export (`surrounding` within
+     its tolerance);
   7. reference checks on small inputs: the kernel path on the card against
      the plain path on the CPU (world steps, an f32 train tick and an f32
      PPO iteration, each also stacked), stacked against loop on the card
@@ -78,7 +80,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the bound,
      its registers and spills (ptxas's report of the library this run
      loaded, kept beside it by the build) and (row gather) one PyTorch gather's
-     time, with the card's clocks, temperatures and clock-event reasons
+     time; the export-row kernel as a call of the benchmark cell's loop
+     runs it (2048 x 128, ~95 % of the slots alive: five launches), against
+     the torch index ops the SimManager ran before it; with the card's
+     clocks, temperatures and clock-event reasons
      sampled before and after; where a rollout tick's, a train tick's and a
      PPO iteration's time goes, and a profiled tick's (iteration's) kernel
      count and idle share; then a profiled stacked tick and stacked PPO
@@ -89,8 +94,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      `env_app` frame at 4 worlds on the card against the CPU; the stdin test
      driver (1 world) fed w, f, q and the web viewer (4 worlds, /state and
      /step over 127.0.0.1) in this process with their kernel launches
-     counted; `learn.app` and `learn.env_app` for 3 headless epochs where
-     matplotlib imports (else a `[viz] frames skipped` line); `tools.prof`
+     (export rows included) counted; `learn.app` and `learn.env_app` for 3
+     headless epochs where matplotlib imports (else a `[viz] frames skipped` line); `tools.prof`
      at 8192 x 128.
   11. worlds-sharded scale-out (`parallel/`, `--use_mesh`), last: (a) the
      CLI at 8192 x 128, hidden 128, bf16 in this process with and without
@@ -131,8 +136,9 @@ Prints a `kernels` JSON line (each row's `launches` from its main path's
 run, `ppo_launches` in a PPO iteration at the bench shape,
 `stacked_launches` in a stacked tick, `stacked_ppo_launches` in a stacked
 PPO iteration, `manager_launches` in the 32 timed manager steps (rows
-systems and raycast), `driver_launches` in the 4-world web viewer's and the
-1-world test driver's two steps (rows raycast_packed and raycast_blocked),
+systems, raycast and export_rows), `driver_launches` in the 4-world web
+viewer's and the 1-world test driver's two steps (rows raycast_packed,
+raycast_blocked and export_rows),
 `mesh_launches` by one rank in the mesh phase's counted runs (8 steps, 2 + 2
 ticks, 1 iteration), `lcurve_launches` in the learning-curve phase's two
 straight runs (16 A2C epochs, 4 PPO iterations), `late_launches` in the
@@ -177,6 +183,8 @@ STACKED_TICKS, STACKED_ROUNDS = 8, 3   # stacked ticks counted; loop / stacked r
 STACKED_PPO_ROUNDS = 2
 BLOCK, BLOCK_ROUNDS = 16, 2      # bench.py's train BENCH_SCAN: 16 ticks a block
 MGR_WARM, MGR_STEPS, MGR_CHECK = 8, 32, 8   # manager steps: warm-up, timed, kernel vs plain
+CELL_W, CELL_A = 2048, 128     # the benchmark cell's SimManager (~95 % of slots alive)
+DRIVER_EXPORTS, VIEWER_EXPORTS = 7, 3   # export-row launches: test driver, web viewer
 LEGACY_WORLDS, LEGACY_EPOCHS = 2048, 32     # learn/env.py's width; 32 of its 100 epochs
 LR = 3e-4
 DEVICE = "cuda"
@@ -469,17 +477,19 @@ def main() -> int:
         timed))
     kernels.append(row_gather_row("row_gather_ppo", ppo_gather[0], ppo_gather[1],
                                   ppo_gather_err, ppo_run["launches"]["row_gather"]))
+    kernels.append(export_rows_row(dev, train["launches"]["export_rows"]))
     # Launches of each row's kernel at the row's shape in one PPO iteration at
     # the bench shape (the 8 x 32 and 4 x 33 shapes are not on that path).
     kernel_of = {"systems": "systems", "raycast": "raycast", "raycast_saturated": "raycast",
-                 "row_gather": "row_gather", "row_gather_ppo": "row_gather"}
+                 "row_gather": "row_gather", "row_gather_ppo": "row_gather",
+                 "export_rows": "export_rows"}
     for k in kernels:
         for name, per in (("ppo_launches", ppo_run["per_iteration"]),
                           ("stacked_launches", strain["per_tick"]),
                           ("stacked_ppo_launches", sppo["per_iteration"])):
             k[name] = per[kernel_of[k["name"]]] if k["name"] in kernel_of else 0
         k["manager_launches"] = (mgr_run["launches"][kernel_of[k["name"]]]
-                                 if k["name"] in ("systems", "raycast") else 0)
+                                 if k["name"] in ("systems", "raycast", "export_rows") else 0)
         k["share"] = k["bound_ms"] / k["ms"]
         k.update(usage.get(os.path.basename(k["source"]),
                            {"registers": None, "spill_bytes": None}))
@@ -488,7 +498,9 @@ def main() -> int:
             lib += (f", {k['fp32_ops']:.4g} FP32 ops, {k['cull_passed']:.0f} of "
                     f"{k['ray_tests']:.0f} ray tests pass the cull")
         dev_ms = "none traced" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
-        log(f"[time] {k['name']}: {k['ms']:.4f} ms/launch (device {dev_ms}, host "
+        per = (f"ms a call of {k['launches_a_call']} launches" if "launches_a_call" in k
+               else "ms/launch")
+        log(f"[time] {k['name']}: {k['ms']:.4f} {per} (device {dev_ms}, host "
             f"{k['host_ms']:.4f} ms a call; launches {k['launches']}, {k['ppo_launches']} a PPO "
             f"iteration, {k['stacked_launches']} a stacked tick, {k['stacked_ppo_launches']} a "
             f"stacked PPO iteration, {k['manager_launches']} in {MGR_STEPS} manager steps), "
@@ -512,8 +524,11 @@ def main() -> int:
     drivers = drivers_phase(dev)
     for k in kernels:
         k["driver_launches"] = {"raycast_packed": drivers["four_worlds"]["raycast"],
-                                "raycast_blocked": drivers["one_world"]["raycast"]}.get(k["name"], 0)
-    log("[drivers] raycast launches in the drivers' 2 steps by kernel row: "
+                                "raycast_blocked": drivers["one_world"]["raycast"],
+                                "export_rows": (drivers["four_worlds"]["export_rows"]
+                                                + drivers["one_world"]["export_rows"])
+                                }.get(k["name"], 0)
+    log("[drivers] launches in the drivers' 2 steps by kernel row: "
         + json.dumps({k["name"]: k["driver_launches"] for k in kernels}))
 
     # ---- 11. worlds-sharded scale-out (after every trace, like 10) ----
@@ -1058,6 +1073,86 @@ def row_gather_row(name, kslot, fields, err, launches):
                            "row_gather_kernel")}
 
 
+def export_rows_row(dev, launches) -> dict:
+    """The export-row kernel's row of the kernel table, as a call of the
+    benchmark cell's loop runs it: SimManager(0, 2048, seed, 128) (~95 %
+    of the slots alive) after 4 calls of that loop. A call is five
+    launches: the write-back of the action and hidden buffers and their
+    refresh, after `step()` and again after `shift_observations()`, and the
+    seven exports of the tick (health int32 into float32, of one size),
+    each into fresh tensors as the manager makes them. `ms`, `device_ms`, `plain_ms`, `library_ms` and
+    `bound_ms` are a call's; `host_ms` is one wrapper call's. The library
+    call is the torch sequence the SimManager ran before the kernel: a zero
+    fill and an index_put per buffer, an index_select and a copy per buffer,
+    an index_select per export and health's cast."""
+    from madrona_bots_tpu_torch.api import SimManager
+    from madrona_bots_tpu_torch.ops import export_rows_cuda as xr
+
+    mgr = SimManager(0, CELL_W, 3200017000, CELL_A, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    for _ in range(4):
+        buf = mgr.action_tensor().to_torch()
+        buf.copy_(random_actions(gen, dev, worlds=CELL_W).reshape(-1, 6)[: buf.shape[0]])
+        mgr.step()
+        manager_getters(mgr, prev=(False,))
+        mgr.shift_observations()
+    s, n, rows = mgr.state, mgr.total_num_agents, CELL_W * CELL_A
+    perm, order = mgr._perm, mgr._order
+    bufs = [mgr._action_buf, mgr._hidden_buf]
+    state_rows = [s.action.reshape(rows, -1), s.hidden.reshape(rows, -1)]
+    refill = [b.clone() for b in bufs]
+    srcs = [f.reshape(rows, -1) for f in (s.sensor_depth, s.sensor_semantic, s.reward, s.pos,
+                                          s.health, s.surrounding, s.stats)]
+    kinds = [f.dtype for f in srcs]
+    kinds[4] = torch.float32
+
+    def call(gather=xr.gather, scatter=xr.scatter):
+        for _ in range(2):
+            fields = [torch.empty_like(r) for r in state_rows]
+            scatter(order, n, list(zip(bufs, fields)))
+            gather(perm, list(zip(state_rows, refill)))
+        outs = [torch.empty((n, f.shape[1]), dtype=k, device=dev) for f, k in zip(srcs, kinds)]
+        gather(perm, list(zip(srcs, outs)))
+        return fields + refill + outs
+
+    def library():
+        for _ in range(2):
+            for b, r in zip(bufs, state_rows):
+                f = torch.zeros_like(r)
+                f[perm] = b[:n]
+            for b, r in zip(refill, state_rows):
+                b[:n] = r.index_select(0, perm)
+        outs = [f.index_select(0, perm) for f in srcs]
+        outs[4] = outs[4].to(torch.float32)
+
+    got = [t.clone() for t in call()]
+    want = call(xr.gather_reference, xr.scatter_reference)
+    torch.cuda.synchronize()
+    mism = [int((g.view(torch.uint8) != w.view(torch.uint8)).sum()) for g, w in zip(got, want)]
+    log(f"[exports] {CELL_W}x{CELL_A}, {n} rows alive: a call's 11 fields kernel vs plain, bytes "
+        f"that differ {mism}")
+    check(sum(mism) == 0, f"export rows kernel vs plain: {mism}")
+    reset_launches()
+    call()
+    check(read_launches() == each(0, 5), f"export rows: launches a call {read_launches()}")
+    buf_b = sum(r.shape[1] * r.element_size() for r in state_rows)
+    out_b = sum(f.shape[1] * f.element_size() for f in srcs)
+    nbyte = (2 * (n * buf_b + rows * buf_b + rows * 8)        # write-backs
+             + 2 * (2 * n * buf_b + n * 8)                     # refreshes
+             + 2 * n * out_b + n * 8)                          # the seven exports
+    costs = launch_costs(call, "export_rows_kernel")
+    return {"name": "export_rows", "route": "cuda",
+            "source": "madrona_bots_tpu_torch/csrc/export_rows.cu",
+            "replaces": "none (the JAX package's host library, native/mbots_host.cpp)",
+            "launches": launches, "launches_a_call": 5, "max_abs_err": 0.0,
+            "ms": timed(call, 50), "plain_ms": timed(lambda: call(xr.gather_reference,
+                                                                 xr.scatter_reference), 10),
+            "bound_ms": nbyte / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": timed(library, 50), "bytes": nbyte, "rows": n,
+            "device_ms": costs["device_ms"], "host_ms": costs["host_ms"] / 5}
+
+
 def train_phase(cfg, dev) -> dict:
     """The CLI's train tick at the bench shape: bf16 forwards, 10 learner
     rows per class. 8 warm-up and 32 timed ticks (CUDA events), each ending
@@ -1107,7 +1202,7 @@ def train_phase(cfg, dev) -> dict:
         f"{ms:.3f} ms/tick, {cfg.num_worlds * 1000.0 / ms:.1f} env-steps/s (CUDA events; "
         f"host clock {host_ms_tick:.3f} ms/tick)")
     log(f"[train] launches {json.dumps(launches)}")
-    check(launches == {k: TRAIN_TICKS for k in launches}, f"train launches {launches}")
+    check(launches == each(TRAIN_TICKS), f"train launches {launches}")
     hist = torch.stack(host_rows)
     names = list(m)
     check(bool(torch.isfinite(hist).all()), "train metrics not finite")
@@ -1265,7 +1360,7 @@ def ppo_phase(cfg, dev) -> dict:
     log(f"[ppo] device memory: {held_mb:.0f} MiB allocated before the timed iterations "
         f"(this phase's state and nets and the earlier phases' tensors), peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB during them")
-    check(launches == {k: PPO_T * PPO_ITERS for k in launches}, f"ppo launches {launches}")
+    check(launches == each(PPO_T * PPO_ITERS), f"ppo launches {launches}")
     per_iteration = {k: v // PPO_ITERS for k, v in launches.items()}
     log(f"[ppo] launches per iteration {json.dumps(per_iteration)}")
     hist = torch.stack(host_rows)
@@ -1351,14 +1446,23 @@ def clone_train_state(ts):
 
 
 def reset_launches() -> None:
-    from madrona_bots_tpu_torch.ops import raycast_cuda, row_gather_cuda, step_cuda
+    from madrona_bots_tpu_torch.ops import (export_rows_cuda, raycast_cuda, row_gather_cuda,
+                                            step_cuda)
     step_cuda.launches = raycast_cuda.launches = row_gather_cuda.launches = 0
+    export_rows_cuda.launches = 0
 
 
 def read_launches() -> dict:
-    from madrona_bots_tpu_torch.ops import raycast_cuda, row_gather_cuda, step_cuda
+    from madrona_bots_tpu_torch.ops import (export_rows_cuda, raycast_cuda, row_gather_cuda,
+                                            step_cuda)
     return {"systems": step_cuda.launches, "raycast": raycast_cuda.launches,
-            "row_gather": row_gather_cuda.launches}
+            "row_gather": row_gather_cuda.launches, "export_rows": export_rows_cuda.launches}
+
+
+def each(n: int, exports: int = 0) -> dict:
+    """`read_launches()` of a run with n launches of each learner-path
+    kernel and `exports` of the export-row kernel."""
+    return {"systems": n, "raycast": n, "row_gather": n, "export_rows": exports}
 
 
 def events_ms(fn, n: int = 1) -> float:
@@ -1425,7 +1529,7 @@ def stacked_train_phase(cfg, dev, train) -> dict:
         f"hidden {HIDDEN}, bf16, {ROWS} learner rows per class (warm-up 4 ticks "
         f"{warm_s:.1f} s): {ms:.3f} ms/tick, {cfg.num_worlds * 1000.0 / ms:.1f} env-steps/s; "
         f"launches {json.dumps(launches)}")
-    check(launches == {k: STACKED_TICKS for k in launches}, f"stacked launches {launches}")
+    check(launches == each(STACKED_TICKS), f"stacked launches {launches}")
     state, ts = held[0], held[1]
     check(all(bool(torch.isfinite(v)) for v in m.values()), "stacked metrics not finite")
 
@@ -1524,7 +1628,7 @@ def stacked_ppo_phase(cfg, dev, run) -> dict:
         f"{cfg.num_worlds * PPO_T * 1000.0 / ms:.1f} env-steps/s; launches "
         f"{json.dumps(launches)}; device memory {base_mb:.0f} MiB before, peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB during it")
-    check(launches == {k: PPO_T for k in launches}, f"stacked ppo launches {launches}")
+    check(launches == each(PPO_T), f"stacked ppo launches {launches}")
     check(bool(torch.isfinite(hist).all()), "stacked ppo metrics not finite")
     moved = float((held[1].params - p0).abs().max())
     check(moved > 0, "stacked ppo: parameters did not move")
@@ -1622,7 +1726,7 @@ def block_phase(cfg, train, strain) -> None:
         reset_launches()
         out = one_block()
         launches = read_launches()
-        check(launches == {k: BLOCK for k in launches}, f"block {name} launches {launches}")
+        check(launches == each(BLOCK), f"block {name} launches {launches}")
         check(tuple(out[0].shape) == (BLOCK, len(a2c.METRIC_NAMES) * NS)
               and bool(torch.isfinite(out[0]).all()), f"block {name} metrics")
         check(bool((out[2] >= 0).all()), f"block {name}: no best tracked from inf")
@@ -1877,7 +1981,8 @@ def manager_phase(dev, gen) -> dict:
         log(f"[manager] {MGR_STEPS} steps at {W}x{A} (init {INIT}), {label.replace('_', ' ')}: "
             f"{ms:.3f} ms/step by events ({W * 1000.0 / ms:.1f} env-steps/s; host clock "
             f"{host:.3f}), launches {json.dumps(launches)}, alive {mgr.total_num_agents}")
-        check(launches == {"systems": MGR_STEPS, "raycast": MGR_STEPS, "row_gather": 0},
+        check(launches == {"systems": MGR_STEPS, "raycast": MGR_STEPS, "row_gather": 0,
+                           "export_rows": (5 if read else 4) * MGR_STEPS},
               f"manager launches ({label}): {launches}")
     res["launches"] = res["getters"]["launches"]
 
@@ -1906,7 +2011,7 @@ def manager_phase(dev, gen) -> dict:
         mp.step()
         plain_launches = read_launches()
         mk.step()
-        check(plain_launches == {"systems": 0, "raycast": 0, "row_gather": 0},
+        check(plain_launches == each(0),
               f"plain manager launched {plain_launches}")
         check(mk.total_num_agents == mp.total_num_agents,
               f"manager kernel vs plain, step {t}: rows {mk.total_num_agents} vs "
@@ -2080,7 +2185,8 @@ def drivers_phase(dev) -> dict:
         f"{' '.join(depth[-1]) if depth else None}; launches {json.dumps(one)}")
     check(len(depth) == 2 and lines[-1] == "bye"
           and all(0 <= int(v) <= 255 for row in depth for v in row), "test driver output")
-    check(one == {"systems": 2, "raycast": 2, "row_gather": 0}, f"test driver launches {one}")
+    check(one == {"systems": 2, "raycast": 2, "row_gather": 0, "export_rows": DRIVER_EXPORTS},
+          f"test driver launches {one}")
 
     reset_launches()
     viewer = WebViewer(num_worlds=4, seed=0, init_agents=32, device=dev)
@@ -2102,7 +2208,8 @@ def drivers_phase(dev) -> dict:
     check(s1["step"] == s0["step"] + 1 and len(s1["depth"]) == 32 and s1["alive"] > 0
           and all(math.isfinite(a["x"]) and math.isfinite(a["y"]) for a in s1["agents"]),
           "web viewer snapshots")
-    check(four == {"systems": 2, "raycast": 2, "row_gather": 0}, f"web viewer launches {four}")
+    check(four == {"systems": 2, "raycast": 2, "row_gather": 0, "export_rows": VIEWER_EXPORTS},
+          f"web viewer launches {four}")
 
     if importlib.util.find_spec("matplotlib") is None:
         log("[viz] frames skipped: no matplotlib")
@@ -2463,7 +2570,7 @@ def mesh_runs(mesh, dev, conf: dict, tag: str) -> dict:
               else [(r * n, (r + 1) * n) for r in range(conf["ranks"])])
     gen = SpeciesNetGenerator(cfg.obs_dim, 6, conf["hidden"], cfg.hidden_state_dim, seed=0)
     models = [ActorCritic.from_generator(gen, device=dev) for _ in range(cfg.num_species)]
-    res = {"launches": {"systems": 0, "raycast": 0, "row_gather": 0}}
+    res = {"launches": each(0)}
 
     def counted(fn):
         sync(dev)
@@ -2663,13 +2770,11 @@ def mesh_report(one: dict, ranks: list, conf: dict) -> dict:
     (tests/test_multihost.py), bf16 within rtol 1e-2, atol 1e-3
     (tests/test_torch_ppo.py's bf16 metrics)."""
     pt = conf["ppo_t"]
-    runs = {"rollout": ({"systems": 1, "raycast": 1, "row_gather": 0}, 1)}
+    runs = {"rollout": (dict(each(1), row_gather=0), 1)}
     for suffix, gather in (("", 1), ("_f32", 0)):
-        runs.update({"a2c" + suffix: ({"systems": 1, "raycast": 1, "row_gather": gather}, 2),
-                     "a2c_stacked" + suffix: ({"systems": 1, "raycast": 1,
-                                               "row_gather": gather}, 2),
-                     "ppo" + suffix: ({"systems": pt, "raycast": pt, "row_gather": pt * gather},
-                                      conf["ppo_m"])})
+        runs.update({"a2c" + suffix: (dict(each(1), row_gather=gather), 2),
+                     "a2c_stacked" + suffix: (dict(each(1), row_gather=gather), 2),
+                     "ppo" + suffix: (dict(each(pt), row_gather=pt * gather), conf["ppo_m"])})
     R = len(ranks)
     for r, res in enumerate(ranks):
         check(res["worlds"] == [r * conf["worlds"] // R, (r + 1) * conf["worlds"] // R],
@@ -2749,7 +2854,7 @@ def lcurve_phase(dev, smi: str) -> dict:
 
     root = os.path.join(REPO, "build", "lcurve_smoke")
     shutil.rmtree(root, ignore_errors=True)
-    total = {"systems": 0, "raycast": 0, "row_gather": 0}
+    total = each(0)
     specs = (lcurve.a2c_spec("raw_logit", 0, epochs=2 * LCURVE_A2C["block"], **LCURVE_A2C),
              lcurve.ppo_spec(0, iters=2 * LCURVE_PPO["block"], **LCURVE_PPO))
     for spec in specs:
@@ -2761,7 +2866,7 @@ def lcurve_phase(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         launches = read_launches()
         per = spec.steps * (spec.rollout if ppo else 1)
-        check(launches == {"systems": per, "raycast": per, "row_gather": per},
+        check(launches == each(per),
               f"[lcurve] {spec.name}: launches {launches}, want {per} each")
         for k, v in launches.items():
             total[k] += v
@@ -2875,7 +2980,7 @@ def late_phase(dev, smi: str) -> dict:
     spec.loader.exec_module(late_slices)
     load_slice = late_slices.load_slice
 
-    total = {"systems": 0, "raycast": 0, "row_gather": 0}
+    total = each(0)
     for it, name in LATE_SLICES.items():
         t0 = time.perf_counter()
         state, tstates = load_slice(os.path.join(REPO, "tests", "data", name), dev)
@@ -2903,8 +3008,7 @@ def late_phase(dev, smi: str) -> dict:
         cpu_state, cpu_ts = load_slice(os.path.join(REPO, "tests", "data", name), "cpu")
         cout = it_p(cpu_state, cpu_ts, rng.split(rng.fold_in(rng.key(0), b), 25)[e])
         torch.cuda.synchronize()
-        want = {"systems": 1 + LATE["rollout_len"], "raycast": 1 + LATE["rollout_len"],
-                "row_gather": 0}
+        want = dict(each(1 + LATE["rollout_len"]), row_gather=0)
         check(launches == want, f"[late] {name}: launches {launches}, want {want}")
         for k, v in launches.items():
             total[k] += v

@@ -6,7 +6,9 @@ permutation, the per-world offset table and the export gather / write-back
 scatter on numpy arrays. Here the same functions take torch tensors and run
 where the state lives; of them only `compaction` reads the device, for the
 species starts. No host library and no numpy branch: the same code runs on
-either device.
+either device. On the card the SimManager moves its export rows with
+`ops/export_rows_cuda.py`, whose plain versions are `gather_rows` and
+`scatter_rows` field by field.
 """
 
 from __future__ import annotations
@@ -19,14 +21,12 @@ import torch
 from madrona_bots_tpu_torch.utils import profiling
 
 
-def compaction(alive: torch.Tensor, species: torch.Tensor, num_species: int
-               ) -> Tuple[torch.Tensor, np.ndarray]:
-    """Species-major export permutation.
-
-    alive [W, A] bool, species [W, A] int32 (1..num_species where alive) ->
-    (perm [n_alive] int64 flat indices w * A + slot on the state's device,
-    species_starts [num_species + 1] int32 on the host). The order is the
-    JAX package's: species-major, ascending flat index within a species.
+def compaction_order(alive: torch.Tensor, species: torch.Tensor, num_species: int
+                     ) -> Tuple[torch.Tensor, np.ndarray]:
+    """The whole sort order behind `compaction`: (order [W * A] int64 on the
+    state's device, species_starts as `compaction`'s). Its first
+    species_starts[-1] entries are the export permutation and the rest are
+    the dead slots, ascending: the write-back scatters over all of it.
 
     One stable sort of the whole flat mask by key (the species where alive,
     num_species + 1 where dead) gives the order with the dead rows last, and
@@ -42,6 +42,20 @@ def compaction(alive: torch.Tensor, species: torch.Tensor, num_species: int
     starts = torch.searchsorted(sorted_keys, bounds).to(torch.int32)
     with profiling.host_sync("species_starts"):
         starts = starts.cpu().numpy()
+    return order, starts
+
+
+def compaction(alive: torch.Tensor, species: torch.Tensor, num_species: int
+               ) -> Tuple[torch.Tensor, np.ndarray]:
+    """Species-major export permutation.
+
+    alive [W, A] bool, species [W, A] int32 (1..num_species where alive) ->
+    (perm [n_alive] int64 flat indices w * A + slot on the state's device,
+    species_starts [num_species + 1] int32 on the host). The order is the
+    JAX package's: species-major, ascending flat index within a species.
+    The first n_alive entries of `compaction_order`.
+    """
+    order, starts = compaction_order(alive, species, num_species)
     return order[: int(starts[-1])], starts
 
 

@@ -12,7 +12,8 @@ tracing is wall-clock step timing streamed to wandb (SURVEY §5). Here:
   `mbots.<layer>.<part>`.
 - `count(name, n)`: always-on integer counters in one process-wide table,
   read with `counts()` without a profiler. The SimManager counts `steps`
-  and `host_syncs` (each blocking device-to-host read, `host_sync`).
+  and `host_syncs` (each blocking device-to-host read, `host_sync`), the
+  export-row kernel's wrapper `export_launches`.
 - `device_trace(logdir)`: a profiler over a block, written for TensorBoard,
   so an operator sees the spans beside the host and card timelines.
 """

@@ -107,9 +107,9 @@ def test_benchmark_call_emits_every_span_nested():
         assert within(call[name][:1], call["mbots.manager.step"]), name
     assert within(call["mbots.sync.species_starts"], call["mbots.manager.order"])
     assert within(call["mbots.sync.nonzero"], call["mbots.manager.gather"])
-    # a step plus the 12 getters: 9 exports built (depth, semantic, reward,
-    # position, health, surrounding, stats, done, sensor index)
-    assert len(call["mbots.manager.gather"]) == 9
+    # a step plus the 12 getters: 3 fills (depth, semantic, reward, position,
+    # health, surrounding and stats in one; done; sensor index)
+    assert len(call["mbots.manager.gather"]) == 3
     with profile(activities=[ProfilerActivity.CPU]) as p:
         mgr.agent_offset_for_world(1)
         mgr.depth_tensor(False).to_numpy()
