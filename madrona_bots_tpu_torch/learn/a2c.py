@@ -29,6 +29,14 @@ With a mesh (`parallel/`) the tick runs on a rank's shard of the worlds:
 each species' gradient comes from `_species_grad`, and the critic's
 denominators, the gradients and the metric sums are all-reduced before
 they are used, so every rank computes the global tick.
+
+Under a profiler the tick records its spans (`utils/profiling.span`):
+`mbots.learn.tick` over the whole tick, and inside it `.rows` (learner
+rows and observations), `.forward` (the no-grad forward), `.draw` (the
+categorical draw), `.grad` (the previous rows' forward and autograd),
+`.adam` and `.writeback` (one-hot, metric sums, action and hidden write,
+shift); the first three and the species' metric sums are once a species
+on the loop path. It always counts `learn_ticks` and `learner_rows`.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from madrona_bots_tpu_torch.learn.pack import (class_major, compact_gather, comp
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic, compute_loss
 from madrona_bots_tpu_torch.models.stacked import StackedActorCritic
 from madrona_bots_tpu_torch.ops import row_gather_cuda
+from madrona_bots_tpu_torch.utils import profiling
 
 f32 = torch.float32
 bf16 = torch.bfloat16
@@ -178,12 +187,13 @@ def _species_grad(model, ts: SpeciesTrainState, obs_cur, obs_prev, mem_cur, mem_
     def fwd(flat, obs, mem):
         return policy_forward(model, flat, obs, mem, compute_dtype)
 
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("mbots.learn.forward"):
         logits, v_new, new_mem = fwd(ts.params, obs_cur, mem_cur)
-    actions = rng.categorical(key, logits, offset)
+    with profiling.span("mbots.learn.draw"):
+        actions = rng.categorical(key, logits, offset)
 
     flat = ts.params.detach().requires_grad_(True)
-    with torch.enable_grad():
+    with torch.enable_grad(), profiling.span("mbots.learn.grad"):
         logits_p, v_prev, _ = fwd(flat, obs_prev, mem_prev)
         # The reference indexes raw actor outputs as "log probs" unless
         # proper_log_probs asks for the log-softmax.
@@ -194,7 +204,7 @@ def _species_grad(model, ts: SpeciesTrainState, obs_cur, obs_prev, mem_cur, mem_
                                                denom=loss_denom)
         (grad,) = torch.autograd.grad((actor_loss + critic_loss).sum(), flat)
 
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("mbots.learn.writeback"):
         logp_soft = F.log_softmax(logits, dim=-1)
         logp_taken = torch.gather(logp_soft, -1, actions[..., None])[..., 0]
         probs = F.softmax(logits, dim=-1)
@@ -343,6 +353,7 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
         (slot, valid_g) or None."""
         W = state.alive.shape[0]
         B = W * rows
+        profiling.count("learner_rows", NS * B)
         if compacting:
             grec4, slot, valid_g, keep, m_full = compact_learner_rows(
                 state, cfg, rows, compute_dtype, quirk_compat, use_kernels)
@@ -386,9 +397,15 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
         return up, mask, loss_mask, dropped, m_full, None
 
     def tick(state: WorldState, train_states, key: torch.Tensor):
+        profiling.count("learn_ticks")
+        with profiling.span("mbots.learn.tick"):
+            return body(state, train_states, key)
+
+    def body(state: WorldState, train_states, key: torch.Tensor):
         state = env_mod.step(state, cfg, use_kernels)
         W, A = state.alive.shape
-        up, mask, loss_mask, dropped, m_full, compaction = learner_rows(state)
+        with profiling.span("mbots.learn.rows"):
+            up, mask, loss_mask, dropped, m_full, compaction = learner_rows(state)
         Wg, offset, loss_denom = W, 0, None
         if mesh is not None:
             # This rank's rows are rows [lo * rows, hi * rows) of each
@@ -406,8 +423,9 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
                 compute_dtype, loss_mask, loss_denom, offset)
             if mesh is not None:
                 (grad,) = mesh.reduce_sum([grad])
-            new_ts = SpeciesTrainState(*optimizer.update(grad, train_states.opt_state,
-                                                         train_states.params))
+            with profiling.span("mbots.learn.adam"):
+                new_ts = SpeciesTrainState(*optimizer.update(grad, train_states.opt_state,
+                                                             train_states.params))
         else:
             outs = [_species_grad(models[s], train_states[s], *(x[s] for x in up), mask[s],
                                   rng.fold_in(key, s), gamma, proper_log_probs, compute_dtype,
@@ -417,60 +435,63 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
             grads = [o[0] for o in outs]
             if mesh is not None:
                 grads = mesh.reduce_sum(grads)           # one all-reduce for every species
-            new_ts = tuple(SpeciesTrainState(*optimizer.update(g, ts.opt_state, ts.params))
-                           for g, ts in zip(grads, train_states))
+            with profiling.span("mbots.learn.adam"):
+                new_ts = tuple(SpeciesTrainState(*optimizer.update(g, ts.opt_state, ts.params))
+                               for g, ts in zip(grads, train_states))
             actions = torch.stack([o[1] for o in outs])
             new_mem = torch.stack([o[2] for o in outs])
             sums = torch.stack([o[3] for o in outs])
-        onehot = F.one_hot(actions, NUM_ACTIONS)
+        with profiling.span("mbots.learn.writeback"):
+            onehot = F.one_hot(actions, NUM_ACTIONS)
 
-        # Population, reward and health always over the full alive set.
-        with torch.no_grad():
-            def per_class(x):
-                return class_major(x, NS).reshape(NS, -1).to(f32)
+            # Population, reward and health always over the full alive set.
+            with torch.no_grad():
+                def per_class(x):
+                    return class_major(x, NS).reshape(NS, -1).to(f32)
 
-            mfc = per_class(m_full)
-            count = mfc.sum(dim=-1)
-            hist = torch.sum(onehot.to(f32) * mask[..., None], dim=1)
-            reward = torch.sum(per_class(state.reward) * mfc, dim=-1)
-            health = torch.sum(per_class(state.health) * mfc, dim=-1)
-            if mesh is not None:
-                sums, count, hist, reward, health, dropped = mesh.reduce_sum(
-                    [sums, count, hist, reward, health, dropped])
-            m = policy_metrics(sums)
-            m.update(count=count, reward=reward, dropped_rows=dropped,
-                     avg_health=health / torch.clamp(count, min=1.0),
-                     count_per_world=count / Wg,
-                     popular_action=torch.argmax(hist, dim=-1).to(f32))
-        metrics = {f"species_{s + 1}_{k}": m[k][s] for s in range(NS) for k in METRIC_NAMES}
+                mfc = per_class(m_full)
+                count = mfc.sum(dim=-1)
+                hist = torch.sum(onehot.to(f32) * mask[..., None], dim=1)
+                reward = torch.sum(per_class(state.reward) * mfc, dim=-1)
+                health = torch.sum(per_class(state.health) * mfc, dim=-1)
+                if mesh is not None:
+                    sums, count, hist, reward, health, dropped = mesh.reduce_sum(
+                        [sums, count, hist, reward, health, dropped])
+                m = policy_metrics(sums)
+                m.update(count=count, reward=reward, dropped_rows=dropped,
+                         avg_health=health / torch.clamp(count, min=1.0),
+                         count_per_world=count / Wg,
+                         popular_action=torch.argmax(hist, dim=-1).to(f32))
+            metrics = {f"species_{s + 1}_{k}": m[k][s] for s in range(NS) for k in METRIC_NAMES}
 
-        if compaction is not None:
-            # One expansion for all species' actions and memory: zeros where
-            # no learner row maps (dead slots and dropped overflow).
-            slot, valid_g = compaction
-            sdt = bf16 if compute_dtype == bf16 else f32
-            src = torch.cat([onehot.to(f32) * mask[..., None], new_mem * mask[..., None]],
-                            dim=-1).reshape(NS * W, rows, NUM_ACTIONS + H).to(sdt)
-            out4 = expand_scatter(src, slot, valid_g, Asub).reshape(
-                NS, W, Asub, NUM_ACTIONS + H).permute(1, 2, 0, 3)
-            new_action = out4[..., :NUM_ACTIONS].to(torch.int32)
-            new_hidden = out4[..., NUM_ACTIONS:]
-        else:
-            new_action = (onehot.to(torch.int32) * mask[..., None].to(torch.int32)).reshape(
-                NS, W, Asub, NUM_ACTIONS).permute(1, 2, 0, 3)
-            new_hidden = (new_mem * mask[..., None]).reshape(NS, W, Asub, H).permute(1, 2, 0, 3)
-        state = env_mod.shift_observations(state, cfg)
-        state = state.replace(
-            action=new_action.reshape(W, A, NUM_ACTIONS).contiguous(),
-            hidden=new_hidden.reshape(W, A, H).to(state.hidden.dtype).contiguous())
-        if quirk_inloop_shift:
-            # The reference's last shift runs after species 1..NS-1 wrote
-            # but before species NS did: only class NS-1 keeps old prevs.
-            last = ((torch.arange(A, device=state.alive.device) % NS)
-                    == NS - 1)[None, :, None]
+            if compaction is not None:
+                # One expansion for all species' actions and memory: zeros where
+                # no learner row maps (dead slots and dropped overflow).
+                slot, valid_g = compaction
+                sdt = bf16 if compute_dtype == bf16 else f32
+                src = torch.cat([onehot.to(f32) * mask[..., None], new_mem * mask[..., None]],
+                                dim=-1).reshape(NS * W, rows, NUM_ACTIONS + H).to(sdt)
+                out4 = expand_scatter(src, slot, valid_g, Asub).reshape(
+                    NS, W, Asub, NUM_ACTIONS + H).permute(1, 2, 0, 3)
+                new_action = out4[..., :NUM_ACTIONS].to(torch.int32)
+                new_hidden = out4[..., NUM_ACTIONS:]
+            else:
+                new_action = (onehot.to(torch.int32) * mask[..., None].to(torch.int32)).reshape(
+                    NS, W, Asub, NUM_ACTIONS).permute(1, 2, 0, 3)
+                new_hidden = (new_mem * mask[..., None]).reshape(NS, W, Asub, H).permute(
+                    1, 2, 0, 3)
+            state = env_mod.shift_observations(state, cfg)
             state = state.replace(
-                prev_action=torch.where(last, state.prev_action, state.action),
-                prev_hidden=torch.where(last, state.prev_hidden, state.hidden))
+                action=new_action.reshape(W, A, NUM_ACTIONS).contiguous(),
+                hidden=new_hidden.reshape(W, A, H).to(state.hidden.dtype).contiguous())
+            if quirk_inloop_shift:
+                # The reference's last shift runs after species 1..NS-1 wrote
+                # but before species NS did: only class NS-1 keeps old prevs.
+                last = ((torch.arange(A, device=state.alive.device) % NS)
+                        == NS - 1)[None, :, None]
+                state = state.replace(
+                    prev_action=torch.where(last, state.prev_action, state.action),
+                    prev_hidden=torch.where(last, state.prev_hidden, state.hidden))
         return state, new_ts, metrics
 
     return tick, optimizer

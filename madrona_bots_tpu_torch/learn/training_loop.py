@@ -59,6 +59,7 @@ from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
 from madrona_bots_tpu_torch.models.stacked import StackedActorCritic
 from madrona_bots_tpu_torch.parallel import distributed
 from madrona_bots_tpu_torch.parallel.mesh import make_mesh
+from madrona_bots_tpu_torch.utils import profiling
 
 BEST_METRICS = ("actor_loss", "critic_loss", "total_loss")
 
@@ -127,6 +128,20 @@ def make_block(tick, ticks: int, num_species: int, ts_view, track_best: bool):
         return state, tstates, torch.stack(rows), bv, snaps, bidx, names
 
     return block
+
+
+def run_tick(tick, state, train_states, key):
+    """One epoch of the loop at `--ticks_per_block 1`: split the key, run
+    the tick (A2C) or iteration (PPO) under the second half, and read its
+    metrics to the host in one copy, the loop's one blocking read
+    (`profiling.host_sync("metrics")`). Returns (state, train states, the
+    carried key, {metric name: float}); consumes `state`."""
+    key, sub = rng.split(key, 2)
+    state, train_states, metrics = tick(state, train_states, sub)
+    stacked = stack_metrics(metrics)
+    with profiling.host_sync("metrics"):
+        host = stacked.cpu()                         # one copy; waits for the card
+    return state, train_states, key, dict(zip(metrics, host.tolist()))
 
 
 def train(args):
@@ -272,12 +287,10 @@ def _train(args, mesh):
     if tpb == 1:
         for rel_epoch in range(1, args.num_epochs + 1):
             t0 = time.time()
-            key, sub = rng.split(key, 2)
-            state, tstates, metrics = tick(state, tstates, sub)
-            host = stack_metrics(metrics).cpu()          # one copy; waits for the card
+            state, tstates, key, host = run_tick(tick, state, tstates, key)
             dt = time.time() - t0
             time_values.append(dt)
-            handle_epoch(rel_epoch, dict(zip(metrics, host.tolist())), dt)
+            handle_epoch(rel_epoch, host, dt)
     else:
         # Under --stacked a species' view is the whole stacked state,
         # unstacked to that species only when its file is written.

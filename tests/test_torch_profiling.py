@@ -1,7 +1,7 @@
 """The port's profiling helpers and tools: `utils/profiling.py` (spans,
-counters and the TensorBoard trace, with the SimManager's spans and sync
-sites), `tools/prof.py` (CUDA only) and `tools/plot_curves.py` (its series
-equal the JAX package's)."""
+counters and the TensorBoard trace, with the SimManager's and the A2C
+tick's spans and sync sites), `tools/prof.py` (CUDA only) and
+`tools/plot_curves.py` (its series equal the JAX package's)."""
 
 import json
 import os
@@ -12,7 +12,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from madrona_bots_tpu.tools import plot_curves as jplot
+from madrona_bots_tpu_torch import rng
 from madrona_bots_tpu_torch.api import SimManager
+from madrona_bots_tpu_torch.config import EnvConfig
+from madrona_bots_tpu_torch.env.state import init_state
+from madrona_bots_tpu_torch.learn import a2c, training_loop
+from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
+from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
 from madrona_bots_tpu_torch.env.state import FIELDS
 from madrona_bots_tpu_torch.tools import plot_curves, prof
 from madrona_bots_tpu_torch.utils import profiling
@@ -139,6 +145,64 @@ def test_profiler_leaves_the_run_unchanged():
             assert w.dtype == g.dtype and torch.equal(w, g)
     for f in FIELDS:
         assert torch.equal(getattr(plain.state, f), getattr(traced.state, f)), f
+
+
+LEARN_SPANS = {"mbots.learn.tick": 1, "mbots.learn.rows": 1, "mbots.learn.forward": 4,
+               "mbots.learn.draw": 4, "mbots.learn.grad": 4, "mbots.learn.adam": 1,
+               "mbots.learn.writeback": 5, "mbots.env.systems": 1, "mbots.env.raycast": 1,
+               "mbots.sync.metrics": 1}
+"""The spans of one epoch of the CLI's A2C loop, and how often each comes:
+the forward, the draw and the gradient once a species, the write-back once
+a species (its metric sums) and once for the tick."""
+
+
+def a2c_loop(num_worlds=2, seed=3):
+    """The CLI's A2C loop at `num_worlds` on the CPU: (tick, state, train
+    states, key), seeded as `_train` seeds it."""
+    cfg = EnvConfig(num_worlds=num_worlds)
+    gen = SpeciesNetGenerator(69, 6, 32, 16, seed=seed)
+    models = [ActorCritic(gen.sample_config()) for _ in range(4)]
+    tick, opt = a2c.make_train_tick(models, cfg)
+    k = rng.key(seed)
+    ts = tuple(a2c.SpeciesTrainState(p, opt.init(p)) for p in
+               (m.flatten(m.init(rng.fold_in(k, sp))) for sp, m in enumerate(models, 1)))
+    return tick, init_state(cfg, seed, "cpu"), ts, rng.key(seed + 1)
+
+
+def test_a2c_loop_spans_under_the_profiler_only(monkeypatch):
+    tick, state, ts, key = a2c_loop()
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        for _ in range(2):
+            state, ts, key, _ = training_loop.run_tick(tick, state, ts, key)
+    spans = program_spans(p)
+    assert {k: len(v) for k, v in spans.items()} == {k: 2 * n for k, n in LEARN_SPANS.items()}
+    for name in LEARN_SPANS:
+        if name.startswith(("mbots.learn.", "mbots.env.")):
+            assert within(spans[name], spans["mbots.learn.tick"]), name
+    assert not within(spans["mbots.sync.metrics"], spans["mbots.learn.tick"])
+
+    def refuse(name):
+        raise AssertionError(f"a profiler event {name!r} with no profiler recording")
+    monkeypatch.setattr(profiling, "_event", refuse)
+    training_loop.run_tick(tick, state, ts, key)
+
+
+def test_a2c_counters_and_one_sync_a_cli_epoch(tmp_path):
+    """`learn_ticks` and `learner_rows` count 1 and W x 128 a tick (262,144
+    at the benchmark's 2048 worlds), and the CLI's loop reads the card once
+    an epoch."""
+    tick, state, ts, key = a2c_loop(num_worlds=3)
+    profiling.reset_counts()
+    for _ in range(2):
+        state, ts, key, _ = training_loop.run_tick(tick, state, ts, key)
+    assert profiling.counts() == {"learn_ticks": 2, "learner_rows": 2 * 3 * 128,
+                                  "host_syncs": 2}
+    profiling.reset_counts()
+    training_loop.main(["--num_worlds", "2", "--num_epochs", "3", "--hidden_dim", "32",
+                        "--create_universe", "--universe_id", "s", "--device", "cpu",
+                        "--model_save_dir", str(tmp_path)])
+    got = profiling.counts()
+    assert got["learn_ticks"] == 3 and got["host_syncs"] == 3, got
 
 
 def test_device_trace(tmp_path):
