@@ -37,6 +37,8 @@ categorical draw), `.grad` (the previous rows' forward and autograd),
 `.adam` and `.writeback` (one-hot, metric sums, action and hidden write,
 shift); the first three and the species' metric sums are once a species
 on the loop path. It always counts `learn_ticks` and `learner_rows`.
+Replayed as a CUDA graph by the CLI's loop (`learn/tick_graph.py`), it
+records none of them: the replay is one `mbots.learn.tick`.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from madrona_bots_tpu_torch.learn.obs import construct_obs, obs_field_cols
 from madrona_bots_tpu_torch.learn.pack import (class_major, compact_gather, compact_slots,
                                                expand_scatter,
                                                kslot_from_class_slots, split3)
+from madrona_bots_tpu_torch.learn.tick_graph import TickGraph
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic, compute_loss
 from madrona_bots_tpu_torch.models.stacked import StackedActorCritic
 from madrona_bots_tpu_torch.ops import row_gather_cuda
@@ -326,7 +329,12 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
     draw is its slice of the global draw, the critic's denominators, the
     gradients and the metric sums are all-reduced (one collective each),
     so every rank steps Adam on the same bits and the parameters stay
-    replicated."""
+    replicated.
+
+    Without a mesh the tick carries `tick.graph`, a `TickGraph`
+    (`learn/tick_graph.py`): `training_loop.run_tick` replays the CLI's
+    loop body as one CUDA graph on a CUDA state. With one it is None, and
+    the loop runs the tick eagerly (its collectives)."""
     optimizer = make_optimizer(lr)
     NS = cfg.num_species
     if len(models) != NS:
@@ -494,6 +502,7 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
                     prev_hidden=torch.where(last, state.prev_hidden, state.hidden))
         return state, new_ts, metrics
 
+    tick.graph = TickGraph() if mesh is None else None
     return tick, optimizer
 
 

@@ -37,6 +37,7 @@ metrics.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
@@ -135,13 +136,29 @@ def run_tick(tick, state, train_states, key):
     the tick (A2C) or iteration (PPO) under the second half, and read its
     metrics to the host in one copy, the loop's one blocking read
     (`profiling.host_sync("metrics")`). Returns (state, train states, the
-    carried key, {metric name: float}); consumes `state`."""
-    key, sub = rng.split(key, 2)
-    state, train_states, metrics = tick(state, train_states, sub)
-    stacked = stack_metrics(metrics)
+    carried key, {metric name: float}); consumes `state`.
+
+    A tick that carries a graph (`tick.graph`: the A2C tick without a mesh)
+    runs all but the copy as one CUDA graph on a CUDA state
+    (`learn/tick_graph.py`); the state it returns is the graph's and is
+    written by the next call."""
+    graph = getattr(tick, "graph", None)
+    if graph is not None and state.device.type == "cuda":
+        state, train_states, key, names, stacked = graph(
+            functools.partial(_loop_body, tick), state, train_states, key)
+    else:
+        state, train_states, key, names, stacked = _loop_body(tick, state, train_states, key)
     with profiling.host_sync("metrics"):
         host = stacked.cpu()                         # one copy; waits for the card
-    return state, train_states, key, dict(zip(metrics, host.tolist()))
+    return state, train_states, key, dict(zip(names, host.tolist()))
+
+
+def _loop_body(tick, state, train_states, key):
+    """run_tick's work on the card: (state, train states, carried key,
+    metric names, the metrics stacked in one f32 vector)."""
+    key, sub = rng.split(key, 2)
+    state, train_states, metrics = tick(state, train_states, sub)
+    return state, train_states, key, tuple(metrics), stack_metrics(metrics)
 
 
 def train(args):

@@ -13,7 +13,9 @@ tracing is wall-clock step timing streamed to wandb (SURVEY §5). Here:
 - `count(name, n)`: always-on integer counters in one process-wide table,
   read with `counts()` without a profiler. The SimManager counts `steps`
   and `host_syncs` (each blocking device-to-host read, `host_sync`), the
-  export-row kernel's wrapper `export_launches`.
+  export-row kernel's wrapper `export_launches`, the A2C tick
+  `learn_ticks` and `learner_rows`, the CLI's loop graph
+  (`learn/tick_graph.py`) `tick_graph_captures` and `tick_graph_replays`.
 - `device_trace(logdir)`: a profiler over a block, written for TensorBoard,
   so an operator sees the spans beside the host and card timelines.
 """
@@ -40,6 +42,11 @@ def span(name: str):
     event costs about a tenth of `torch.profiler.record_function`, whose
     enter and exit are two profiled operator calls."""
     return _event(name) if _autograd_profiler._is_profiler_enabled else _OFF
+
+
+def recording() -> bool:
+    """Whether a torch profiler records: the flag `span` reads."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def count(name: str, n: int = 1) -> None:
