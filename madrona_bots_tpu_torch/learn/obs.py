@@ -15,24 +15,30 @@ from madrona_bots_tpu_torch.env.state import WorldState
 from madrona_bots_tpu_torch.learn.pack import Packer, gather_rows
 
 
+def obs_columns(depth, health, pos, semantic, surrounding, dtype=torch.float32):
+    """The 69-dim layout's columns in `dtype`: depth, health (with or
+    without its column axis), pos, semantic, surrounding."""
+    if health.dim() < depth.dim():
+        health = health[..., None]
+    return [depth.to(dtype), health.to(dtype), pos.to(dtype), semantic.to(dtype),
+            surrounding.to(dtype)]
+
+
 def obs_field_cols(state: WorldState, cfg: EnvConfig, prev: bool = False,
                    quirk_compat: bool = False, dtype=torch.float32):
-    """The observation as a column list (depth, health, pos, semantic,
-    surrounding). With quirk_compat the depth block carries the semantic
-    bytes (Q1) and the health column is the int32 storage reinterpreted as
-    float32 (Q2)."""
+    """The observation as a column list (`obs_columns`). With quirk_compat
+    the depth block carries the semantic bytes (Q1) and the health column
+    is the int32 storage reinterpreted as float32 (Q2)."""
     if prev:
         depth, semantic = state.prev_sensor_depth, state.prev_sensor_semantic
         health, pos, surrounding = state.prev_health, state.prev_pos, state.prev_surrounding
     else:
         depth, semantic = state.sensor_depth, state.sensor_semantic
         health, pos, surrounding = state.health, state.pos, state.surrounding
-    health_col = health[..., None]
     if quirk_compat:
         depth = semantic.to(torch.uint8)
-        health_col = health_col.to(torch.int32).view(torch.float32)
-    return [depth.to(dtype), health_col.to(dtype), pos.to(dtype),
-            semantic.to(dtype), surrounding.to(dtype)]
+        health = health.to(torch.int32).view(torch.float32)
+    return obs_columns(depth, health, pos, semantic, surrounding, dtype)
 
 
 def construct_obs(state: WorldState, cfg: EnvConfig, prev: bool = False,
@@ -81,11 +87,8 @@ def pack_obs_fields(pk: Packer, depth, health, pos, semantic, surrounding,
     add_float(surrounding)
 
     def finalize(d, h, p, sm, su):
-        if h.dim() < d.dim():
-            h = h[..., None]
         if quirk_compat:
             h = torch.round(h).to(torch.int32).view(torch.float32)
-        return torch.cat([d.to(dtype), h.to(dtype), p.to(dtype), sm.to(dtype),
-                          su.to(dtype)], dim=-1)
+        return torch.cat(obs_columns(d, h, p, sm, su, dtype), dim=-1)
 
     return finalize

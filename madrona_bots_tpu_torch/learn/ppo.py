@@ -54,6 +54,7 @@ from madrona_bots_tpu_torch.env import env as env_mod
 from madrona_bots_tpu_torch.env.state import WorldState
 from madrona_bots_tpu_torch.learn.a2c import (Adam, SpeciesTrainState, class_masks,
                                               clip_by_global_norm, policy_forward)
+from madrona_bots_tpu_torch.learn.obs import obs_columns
 from madrona_bots_tpu_torch.learn.pack import (class_major, compact_gather, compact_slots,
                                                kslot_from_class_slots, split3)
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
@@ -101,12 +102,6 @@ class RolloutC(NamedTuple):
     alive: torch.Tensor       # bool [T, W, A] pre-step
     reward: torch.Tensor      # f32 [T, W, A]
     next_alive: torch.Tensor  # bool [T, W, A]
-
-
-def _flat_obs(depth, health, pos, semantic, surrounding, dtype=f32):
-    """The 69-dim obs layout [depth, health, pos, semantic, surrounding]."""
-    return torch.cat([depth.to(dtype), health[..., None].to(dtype), pos.to(dtype),
-                      semantic.to(dtype), surrounding.to(dtype)], dim=-1)
 
 
 def make_ppo_optimizer(lr: float = 3e-4, max_grad_norm: float = 0.5) -> Adam:
@@ -218,8 +213,9 @@ class PPOTrainer:
             x = x.reshape((NS, W, Asub) + x.shape[2:])
             return x.permute((1, 2, 0) + tuple(range(3, x.dim()))).reshape((W, A) + x.shape[3:])
 
-        obs = _flat_obs(state.sensor_depth, state.health, state.pos,
-                        state.sensor_semantic, state.surrounding, self.obs_dtype)
+        obs = torch.cat(obs_columns(state.sensor_depth, state.health, state.pos,
+                                    state.sensor_semantic, state.surrounding,
+                                    self.obs_dtype), dim=-1)
         m = st(class_masks(state, NS)[0])
         with torch.no_grad():
             if self.sac is not None:
@@ -440,9 +436,9 @@ class PPOTrainer:
         returns = advantages + roll.value
         bufs = []
         for s in range(NS):
-            obs = _flat_obs(fl(roll.depth, s), fl(roll.health, s), fl(roll.pos, s),
-                            fl(roll.semantic, s), fl(roll.surrounding, s), self.obs_dtype)
-            om = torch.cat([obs, fl(roll.memory, s).to(obs.dtype)], dim=-1)
+            cols = obs_columns(fl(roll.depth, s), fl(roll.health, s), fl(roll.pos, s),
+                               fl(roll.semantic, s), fl(roll.surrounding, s), self.obs_dtype)
+            om = torch.cat(cols + [fl(roll.memory, s).to(self.obs_dtype)], dim=-1)
             mask = mbm(fl(roll.alive, s) & (fl(roll.species, s) == s + 1))
             if present is not None:
                 mask = mask & present

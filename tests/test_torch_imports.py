@@ -132,3 +132,17 @@ def test_training_cli_defaults_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         training_loop.main(args)
     assert not any(tmp_path.iterdir())
+
+
+def test_torch_threads_are_the_workers_share_of_the_cpus():
+    """Under xdist each worker's torch, and OMP_NUM_THREADS, hold its share
+    of the CPUs, whatever modules ran before; outside xdist OMP_NUM_THREADS
+    stays as the process found it."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        n = max(1, len(os.sched_getaffinity(0)) // int(workers))
+        assert (torch.get_num_threads(), os.environ["OMP_NUM_THREADS"]) == (n, str(n))
+    else:
+        start = dict(kv.split(b"=", 1) for kv in
+                     pathlib.Path("/proc/self/environ").read_bytes().split(b"\0") if b"=" in kv)
+        assert os.environb.get(b"OMP_NUM_THREADS") == start.get(b"OMP_NUM_THREADS")

@@ -97,11 +97,9 @@ def a2c_run(make_tick, kw):
 _WORKER = r"""
 import contextlib, io, json, sys
 store, rank, out_dir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
-torch_threads = 2
 from madrona_bots_tpu_torch.parallel import distributed
 mesh = distributed.initialize(f"file://{store}", 2, rank, device="cpu", timeout_s=150)
 """ + _COMMON + r"""
-torch.set_num_threads(torch_threads)
 import torch.nn.functional as F
 from madrona_bots_tpu_torch.env import env as env_mod
 from madrona_bots_tpu_torch.env.state import init_state
@@ -171,7 +169,7 @@ def csum(parts, skip=()) -> int:
 def runs(tmp_path_factory):
     """(the two workers' results, the single-process references)."""
     d = tmp_path_factory.mktemp("multihost")
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH=REPO)
     cli_flags = json.dumps(CLI + ["--algo", "a2c"])
     procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(d / "store"), str(r),
                                str(d / "cli"), json.dumps(A2C_CASES), cli_flags],

@@ -34,6 +34,7 @@ from madrona_bots_tpu_torch.config import EnvConfig
 from madrona_bots_tpu_torch.env import env as env_mod
 from madrona_bots_tpu_torch.env.state import FIELDS, state_from_numpy, state_to_numpy
 from madrona_bots_tpu_torch.learn import ppo
+from madrona_bots_tpu_torch.learn.obs import obs_columns
 from madrona_bots_tpu_torch.models.actor_critic import ActorCritic
 from madrona_bots_tpu_torch.models.generator import SpeciesNetGenerator
 from madrona_bots_tpu_torch.ops import row_gather_cuda
@@ -297,8 +298,8 @@ def test_bf16_record_pack_matches_pallas_pack(rows):
     trainer, _ = ppo.make_ppo_trainer(models, cfg, rollout_len=2, num_minibatches=2,
                                       compute_dtype=torch.bfloat16,
                                       learner_slots_per_class=rows)
-    obs = ppo._flat_obs(state.sensor_depth, state.health, state.pos, state.sensor_semantic,
-                        state.surrounding, torch.bfloat16)
+    obs = torch.cat(obs_columns(state.sensor_depth, state.health, state.pos,
+                                state.sensor_semantic, state.surrounding, torch.bfloat16), -1)
     rec, valid, srcrow, dropped = trainer.pack_records(state, obs, action, logp, value)
 
     s = jax_arrays_of(state)

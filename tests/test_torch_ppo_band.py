@@ -241,17 +241,6 @@ def teacher_forced(band, arrays, tts, first_it, n):
 
 # ---- the default run: 48 worlds, spec path ----
 
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """The port's side on 2 threads: in a 6-worker run of the whole suite
-    on 8 cores this module's first test took 760 s on 8 threads (15 s
-    alone); with 2 the module takes 81 s alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 STEPS = [("init", 0), ("i1000", 0), ("i1000", 1), ("i1400", 0), ("i1400", 1)]
 
 
