@@ -136,13 +136,17 @@ Prints a `kernels` JSON line (each row's `launches` from its main path's
 run, `ppo_launches` in a PPO iteration at the bench shape,
 `stacked_launches` in a stacked tick, `stacked_ppo_launches` in a stacked
 PPO iteration, `manager_launches` in the 32 timed manager steps (rows
-systems, raycast and export_rows), `driver_launches` in the 4-world web
-viewer's and the 1-world test driver's two steps (rows raycast_packed,
-raycast_blocked and export_rows),
+systems, raycast, export_rows and the threefry rows), `driver_launches` in
+the 4-world web viewer's and the 1-world test driver's two steps (rows
+raycast_packed, raycast_blocked, export_rows and the threefry rows: their
+managers' init_state),
 `mesh_launches` by one rank in the mesh phase's counted runs (8 steps, 2 + 2
 ticks, 1 iteration), `lcurve_launches` in the learning-curve phase's two
 straight runs (16 A2C epochs, 4 PPO iterations), `late_launches` in the
-late phase's kernel runs (a step and an iteration a slice)),
+late phase's kernel runs (a step and an iteration a slice); the threefry
+rows count their entry point's launches, `threefry_fold_in` the hash's
+(fold_in and split) and `threefry_categorical` the draw's, each checked
+against what the run's ticks, iterations and set-up call),
 the card's
 name and power limit, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device or without the package beside it. Timings use CUDA events; a
@@ -172,6 +176,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM FP32 outside the tensor cores
+INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: 64 int32 ops a clock an SM at 1.98 GHz
+THREEFRY_OPS = 72              # int32 ops of a threefry2x32 hash (csrc/threefry.cu)
 SURR_RTOL, SURR_ATOL = 1e-5, 1e-4
 W, A, INIT = 8192, 128, 32
 TICKS = 64
@@ -478,18 +484,22 @@ def main() -> int:
     kernels.append(row_gather_row("row_gather_ppo", ppo_gather[0], ppo_gather[1],
                                   ppo_gather_err, ppo_run["launches"]["row_gather"]))
     kernels.append(export_rows_row(dev, train["launches"]["export_rows"]))
+    kernels += threefry_rows(dev, train["launches"])
     # Launches of each row's kernel at the row's shape in one PPO iteration at
     # the bench shape (the 8 x 32 and 4 x 33 shapes are not on that path).
     kernel_of = {"systems": "systems", "raycast": "raycast", "raycast_saturated": "raycast",
                  "row_gather": "row_gather", "row_gather_ppo": "row_gather",
-                 "export_rows": "export_rows"}
+                 "export_rows": "export_rows", "threefry_categorical": "threefry_categorical",
+                 "threefry_fold_in": "threefry_hash"}
     for k in kernels:
         for name, per in (("ppo_launches", ppo_run["per_iteration"]),
                           ("stacked_launches", strain["per_tick"]),
                           ("stacked_ppo_launches", sppo["per_iteration"])):
             k[name] = per[kernel_of[k["name"]]] if k["name"] in kernel_of else 0
         k["manager_launches"] = (mgr_run["launches"][kernel_of[k["name"]]]
-                                 if k["name"] in ("systems", "raycast", "export_rows") else 0)
+                                 if k["name"] in ("systems", "raycast", "export_rows",
+                                                  "threefry_categorical", "threefry_fold_in")
+                                 else 0)
         k["share"] = k["bound_ms"] / k["ms"]
         k.update(usage.get(os.path.basename(k["source"]),
                            {"registers": None, "spill_bytes": None}))
@@ -497,6 +507,8 @@ def main() -> int:
         if "ray_tests" in k:
             lib += (f", {k['fp32_ops']:.4g} FP32 ops, {k['cull_passed']:.0f} of "
                     f"{k['ray_tests']:.0f} ray tests pass the cull")
+        if "int32_ops" in k:
+            lib += f", {k['int32_ops']:.4g} int32 ops, {k['bytes']:.4g} bytes"
         dev_ms = "none traced" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         per = (f"ms a call of {k['launches_a_call']} launches" if "launches_a_call" in k
                else "ms/launch")
@@ -525,8 +537,10 @@ def main() -> int:
     for k in kernels:
         k["driver_launches"] = {"raycast_packed": drivers["four_worlds"]["raycast"],
                                 "raycast_blocked": drivers["one_world"]["raycast"],
-                                "export_rows": (drivers["four_worlds"]["export_rows"]
-                                                + drivers["one_world"]["export_rows"])
+                                **{name: (drivers["four_worlds"][kernel_of[name]]
+                                          + drivers["one_world"][kernel_of[name]])
+                                   for name in ("export_rows", "threefry_categorical",
+                                                "threefry_fold_in")}
                                 }.get(k["name"], 0)
     log("[drivers] launches in the drivers' 2 steps by kernel row: "
         + json.dumps({k["name"]: k["driver_launches"] for k in kernels}))
@@ -1153,6 +1167,61 @@ def export_rows_row(dev, launches) -> dict:
             "device_ms": costs["device_ms"], "host_ms": costs["host_ms"] / 5}
 
 
+def threefry_rows(dev, launches: dict) -> list:
+    """The threefry kernel's rows (`csrc/threefry.cu`), at the A2C cell's
+    shape: a tick's four species draws, each a [2] key over [65,536, 6] f32
+    logits (4 launches), and one `fold_in` of a [2] key (1 launch), each
+    held bit-equal to its plain version first. `ms` (CUDA events),
+    `device_ms`, `plain_ms` and `bound_ms` are a call's, `host_ms` a
+    launch's. Bound: the larger of the hashes' int32 operations (72 a hash,
+    3 more a draw) at `INT32_OPS_PER_S` and the bytes (logits and keys
+    read, actions or keys written) at 3.35 TB/s. `launches` are the train
+    phase's (`launches`, by `read_launches`) of the row's entry point."""
+    from madrona_bots_tpu_torch import rng
+    from madrona_bots_tpu_torch.ops import threefry_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    rows, width, species = CELL_W * CELL_A // 4, 6, 4
+    key = rng.key(3200022000, dev)
+    keys = [rng.fold_in(key, s) for s in range(species)]
+    logits = [torch.randn(rows, width, generator=gen, device=dev) * 3 for _ in range(species)]
+
+    def draws(fn=rng.categorical):
+        return [fn(k, x) for k, x in zip(keys, logits)]
+
+    mism = sum(int((g != w).sum()) for g, w in zip(draws(), draws(rng.categorical_reference)))
+    fold = rng.fold_in(key, 3)
+    fold_mism = int((fold != rng.fold_in_reference(key, 3)).sum())
+    log(f"[threefry] {species} draws of {rows} x {width} kernel vs plain: {mism} actions "
+        f"differ; fold_in of a [2] key: {fold_mism} words differ")
+    check(mism == 0 and fold_mism == 0, f"threefry kernel vs plain: {mism}, {fold_mism}")
+    out = []
+    for name, fn, plain, kernel, entry, n_calls, hashes, nbyte in (
+            ("threefry_categorical", draws, lambda: draws(rng.categorical_reference),
+             "threefry_categorical_kernel", "categorical", species, species * rows * width,
+             species * (rows * width * 4 + rows * 8 + 16)),
+            ("threefry_fold_in", lambda: rng.fold_in(key, 3),
+             lambda: rng.fold_in_reference(key, 3), "threefry_hash_kernel", "hash", 1, 1, 32)):
+        reset_launches()
+        fn()
+        check(read_launches()[f"threefry_{entry}"] == n_calls,
+              f"{name}: {read_launches()} launches a call")
+        ops = hashes * (THREEFRY_OPS + (3 if entry == "categorical" else 0))
+        ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbyte / HBM_BYTES_PER_S * 1e3
+        costs = launch_costs(fn, kernel)
+        out.append({
+            "name": name, "route": "cuda", "source": "madrona_bots_tpu_torch/csrc/threefry.cu",
+            "replaces": "none (jax.random in XLA; the plain version is rng.py's int64 torch ops)",
+            "launches": launches[f"threefry_{entry}"], "launches_a_call": n_calls,
+            "max_abs_err": 0.0, "ms": timed(fn, 50), "plain_ms": timed(plain, 10),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "int32 operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "int32_ops": ops, "bytes": nbyte,
+            "device_ms": costs["device_ms"], "host_ms": costs["host_ms"] / n_calls})
+    return out
+
+
 def train_phase(cfg, dev) -> dict:
     """The CLI's train tick at the bench shape: bf16 forwards, 10 learner
     rows per class. 8 warm-up and 32 timed ticks (CUDA events), each ending
@@ -1202,7 +1271,8 @@ def train_phase(cfg, dev) -> dict:
         f"{ms:.3f} ms/tick, {cfg.num_worlds * 1000.0 / ms:.1f} env-steps/s (CUDA events; "
         f"host clock {host_ms_tick:.3f} ms/tick)")
     log(f"[train] launches {json.dumps(launches)}")
-    check(launches == each(TRAIN_TICKS), f"train launches {launches}")
+    check(launches == each(TRAIN_TICKS, rng=a2c_rng(TRAIN_TICKS, cfg.num_species)),
+          f"train launches {launches}")
     hist = torch.stack(host_rows)
     names = list(m)
     check(bool(torch.isfinite(hist).all()), "train metrics not finite")
@@ -1360,7 +1430,9 @@ def ppo_phase(cfg, dev) -> dict:
     log(f"[ppo] device memory: {held_mb:.0f} MiB allocated before the timed iterations "
         f"(this phase's state and nets and the earlier phases' tensors), peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB during them")
-    check(launches == each(PPO_T * PPO_ITERS), f"ppo launches {launches}")
+    check(launches == each(PPO_T * PPO_ITERS,
+                           rng=plus(*[ppo_rng(PPO_T, NS)] * PPO_ITERS)),
+          f"ppo launches {launches}")
     per_iteration = {k: v // PPO_ITERS for k, v in launches.items()}
     log(f"[ppo] launches per iteration {json.dumps(per_iteration)}")
     hist = torch.stack(host_rows)
@@ -1447,22 +1519,52 @@ def clone_train_state(ts):
 
 def reset_launches() -> None:
     from madrona_bots_tpu_torch.ops import (export_rows_cuda, raycast_cuda, row_gather_cuda,
-                                            step_cuda)
+                                            step_cuda, threefry_cuda)
     step_cuda.launches = raycast_cuda.launches = row_gather_cuda.launches = 0
-    export_rows_cuda.launches = 0
+    export_rows_cuda.launches = threefry_cuda.launches = 0
+    for entry in threefry_cuda.launches_of:
+        threefry_cuda.launches_of[entry] = 0
 
 
 def read_launches() -> dict:
     from madrona_bots_tpu_torch.ops import (export_rows_cuda, raycast_cuda, row_gather_cuda,
-                                            step_cuda)
+                                            step_cuda, threefry_cuda)
     return {"systems": step_cuda.launches, "raycast": raycast_cuda.launches,
-            "row_gather": row_gather_cuda.launches, "export_rows": export_rows_cuda.launches}
+            "row_gather": row_gather_cuda.launches, "export_rows": export_rows_cuda.launches,
+            **{f"threefry_{e}": threefry_cuda.launches_of[e] for e in THREEFRY}}
 
 
-def each(n: int, exports: int = 0) -> dict:
+THREEFRY = ("hash", "words", "categorical")   # the threefry entry points a run launches
+INIT_STATE_RNG = (3, 1, 0)   # init_state: the world keys (2 hashes), the positions' (1, 1 words)
+
+
+def each(n: int, exports: int = 0, rng=(0, 0, 0)) -> dict:
     """`read_launches()` of a run with n launches of each learner-path
-    kernel and `exports` of the export-row kernel."""
-    return {"systems": n, "raycast": n, "row_gather": n, "export_rows": exports}
+    kernel, `exports` of the export-row kernel and `rng` = (hash, words,
+    categorical) of the threefry kernel."""
+    return {"systems": n, "raycast": n, "row_gather": n, "export_rows": exports,
+            **{f"threefry_{e}": k for e, k in zip(THREEFRY, rng)}}
+
+
+def plus(*rngs) -> tuple:
+    """The sum of threefry launch triples."""
+    return tuple(map(sum, zip(*rngs)))
+
+
+def a2c_rng(ticks: int, NS: int, stacked: bool = False, keys: int = 1) -> tuple:
+    """Threefry launches of `ticks` A2C ticks, each keyed by `keys` hashes
+    of its caller (a split or a fold_in): a tick's species keys (NS
+    fold_ins, or one over a range stacked) and draws (NS, or one)."""
+    per = 1 if stacked else NS
+    return (ticks * (keys + per), 0, ticks * per)
+
+
+def ppo_rng(T: int, NS: int, stacked: bool = False, keys: int = 1) -> tuple:
+    """Threefry launches of a PPO iteration keyed by `keys` hashes of its
+    caller: T rollout steps (a split, the species keys, the draws) and the
+    minibatch roll (`randint(fold_in(key, 777), ...)`: 3 hashes, 2 words)."""
+    per = 1 if stacked else NS
+    return (keys + T * (1 + per) + 3, 2, T * per)
 
 
 def events_ms(fn, n: int = 1) -> float:
@@ -1529,7 +1631,9 @@ def stacked_train_phase(cfg, dev, train) -> dict:
         f"hidden {HIDDEN}, bf16, {ROWS} learner rows per class (warm-up 4 ticks "
         f"{warm_s:.1f} s): {ms:.3f} ms/tick, {cfg.num_worlds * 1000.0 / ms:.1f} env-steps/s; "
         f"launches {json.dumps(launches)}")
-    check(launches == each(STACKED_TICKS), f"stacked launches {launches}")
+    check(launches == each(STACKED_TICKS,
+                           rng=a2c_rng(STACKED_TICKS, cfg.num_species, stacked=True)),
+          f"stacked launches {launches}")
     state, ts = held[0], held[1]
     check(all(bool(torch.isfinite(v)) for v in m.values()), "stacked metrics not finite")
 
@@ -1628,7 +1732,8 @@ def stacked_ppo_phase(cfg, dev, run) -> dict:
         f"{cfg.num_worlds * PPO_T * 1000.0 / ms:.1f} env-steps/s; launches "
         f"{json.dumps(launches)}; device memory {base_mb:.0f} MiB before, peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB during it")
-    check(launches == each(PPO_T), f"stacked ppo launches {launches}")
+    check(launches == each(PPO_T, rng=ppo_rng(PPO_T, NS, stacked=True)),
+          f"stacked ppo launches {launches}")
     check(bool(torch.isfinite(hist).all()), "stacked ppo metrics not finite")
     moved = float((held[1].params - p0).abs().max())
     check(moved > 0, "stacked ppo: parameters did not move")
@@ -1726,7 +1831,8 @@ def block_phase(cfg, train, strain) -> None:
         reset_launches()
         out = one_block()
         launches = read_launches()
-        check(launches == each(BLOCK), f"block {name} launches {launches}")
+        rng_block = plus((1, 0, 0), a2c_rng(BLOCK, NS, stacked=name == "stacked"))
+        check(launches == each(BLOCK, rng=rng_block), f"block {name} launches {launches}")
         check(tuple(out[0].shape) == (BLOCK, len(a2c.METRIC_NAMES) * NS)
               and bool(torch.isfinite(out[0]).all()), f"block {name} metrics")
         check(bool((out[2] >= 0).all()), f"block {name}: no best tracked from inf")
@@ -1981,8 +2087,7 @@ def manager_phase(dev, gen) -> dict:
         log(f"[manager] {MGR_STEPS} steps at {W}x{A} (init {INIT}), {label.replace('_', ' ')}: "
             f"{ms:.3f} ms/step by events ({W * 1000.0 / ms:.1f} env-steps/s; host clock "
             f"{host:.3f}), launches {json.dumps(launches)}, alive {mgr.total_num_agents}")
-        check(launches == {"systems": MGR_STEPS, "raycast": MGR_STEPS, "row_gather": 0,
-                           "export_rows": (5 if read else 4) * MGR_STEPS},
+        check(launches == dict(each(MGR_STEPS, (5 if read else 4) * MGR_STEPS), row_gather=0),
               f"manager launches ({label}): {launches}")
     res["launches"] = res["getters"]["launches"]
 
@@ -2185,7 +2290,7 @@ def drivers_phase(dev) -> dict:
         f"{' '.join(depth[-1]) if depth else None}; launches {json.dumps(one)}")
     check(len(depth) == 2 and lines[-1] == "bye"
           and all(0 <= int(v) <= 255 for row in depth for v in row), "test driver output")
-    check(one == {"systems": 2, "raycast": 2, "row_gather": 0, "export_rows": DRIVER_EXPORTS},
+    check(one == dict(each(2, DRIVER_EXPORTS, INIT_STATE_RNG), row_gather=0),
           f"test driver launches {one}")
 
     reset_launches()
@@ -2208,7 +2313,7 @@ def drivers_phase(dev) -> dict:
     check(s1["step"] == s0["step"] + 1 and len(s1["depth"]) == 32 and s1["alive"] > 0
           and all(math.isfinite(a["x"]) and math.isfinite(a["y"]) for a in s1["agents"]),
           "web viewer snapshots")
-    check(four == {"systems": 2, "raycast": 2, "row_gather": 0, "export_rows": VIEWER_EXPORTS},
+    check(four == dict(each(2, VIEWER_EXPORTS, INIT_STATE_RNG), row_gather=0),
           f"web viewer launches {four}")
 
     if importlib.util.find_spec("matplotlib") is None:
@@ -2769,12 +2874,21 @@ def mesh_report(one: dict, ranks: list, conf: dict) -> dict:
     PPO is also held by its losses: f32 within 1e-4 relative
     (tests/test_multihost.py), bf16 within rtol 1e-2, atol 1e-3
     (tests/test_torch_ppo.py's bf16 metrics)."""
-    pt = conf["ppo_t"]
-    runs = {"rollout": (dict(each(1), row_gather=0), 1)}
+    from madrona_bots_tpu_torch import EnvConfig
+
+    pt, steps, NS = conf["ppo_t"], conf["steps"], EnvConfig().num_species
+    # Threefry launches a unit (as `mesh_runs` divides them): the rollout's
+    # init_state and a step's actions (a fold_in and randint's 2 hashes, 2
+    # words); a tick keyed by a fold_in; an iteration from init_state.
+    per_step = [k / steps for k in plus(INIT_STATE_RNG, *[(3, 2, 0)] * steps)]
+    runs = {"rollout": (dict(each(1, rng=per_step), row_gather=0), 1)}
     for suffix, gather in (("", 1), ("_f32", 0)):
-        runs.update({"a2c" + suffix: (dict(each(1), row_gather=gather), 2),
-                     "a2c_stacked" + suffix: (dict(each(1), row_gather=gather), 2),
-                     "ppo" + suffix: (dict(each(pt), row_gather=pt * gather), conf["ppo_m"])})
+        runs.update({"a2c" + suffix: (dict(each(1, rng=a2c_rng(1, NS)), row_gather=gather), 2),
+                     "a2c_stacked" + suffix: (dict(each(1, rng=a2c_rng(1, NS, stacked=True)),
+                                                   row_gather=gather), 2),
+                     "ppo" + suffix: (dict(each(pt, rng=plus(INIT_STATE_RNG,
+                                                             ppo_rng(pt, NS, keys=0))),
+                                           row_gather=pt * gather), conf["ppo_m"])})
     R = len(ranks)
     for r, res in enumerate(ranks):
         check(res["worlds"] == [r * conf["worlds"] // R, (r + 1) * conf["worlds"] // R],
@@ -2859,15 +2973,18 @@ def lcurve_phase(dev, smi: str) -> dict:
              lcurve.ppo_spec(0, iters=2 * LCURVE_PPO["block"], **LCURVE_PPO))
     for spec in specs:
         ppo = spec.algo == "ppo"
+        straight = lcurve.Driver(spec, dev).start()
         torch.cuda.synchronize()
         reset_launches()
-        straight = lcurve.Driver(spec, dev).start()
         straight.advance()
         torch.cuda.synchronize()
         launches = read_launches()
         per = spec.steps * (spec.rollout if ppo else 1)
-        check(launches == each(per),
-              f"[lcurve] {spec.name}: launches {launches}, want {per} each")
+        # a block's keys: a fold_in and a split
+        want = each(per, rng=plus(*[(2, 0, 0)] * (spec.steps // spec.block),
+                                  *[ppo_rng(spec.rollout, lcurve.NS, keys=0) if ppo
+                                    else a2c_rng(1, lcurve.NS, keys=0)] * spec.steps))
+        check(launches == want, f"[lcurve] {spec.name}: launches {launches}, want {want}")
         for k, v in launches.items():
             total[k] += v
         t0 = time.perf_counter()
@@ -3008,7 +3125,9 @@ def late_phase(dev, smi: str) -> dict:
         cpu_state, cpu_ts = load_slice(os.path.join(REPO, "tests", "data", name), "cpu")
         cout = it_p(cpu_state, cpu_ts, rng.split(rng.fold_in(rng.key(0), b), 25)[e])
         torch.cuda.synchronize()
-        want = dict(each(1 + LATE["rollout_len"]), row_gather=0)
+        want = dict(each(1 + LATE["rollout_len"], rng=plus(
+            a2c_rng(1, cfg.num_species), ppo_rng(LATE["rollout_len"], cfg.num_species, keys=0))),
+            row_gather=0)
         check(launches == want, f"[late] {name}: launches {launches}, want {want}")
         for k, v in launches.items():
             total[k] += v

@@ -75,12 +75,16 @@ def food_spawn(food_count, food_cell, num_food, world_keys, t, cfg: EnvConfig):
     W = world_keys.shape[0]
     C, P = cfg.num_chunks, cfg.max_food_packages
     dev = world_keys.device
-    k = rng.fold_in(rng.fold_in(world_keys, t), SALT_FOOD)
-    gate = rng.randint(rng.fold_in(k, 0), (), 0, 10)
-    n = rng.randint(rng.fold_in(k, 1), (), 1, 3)
+    # The plain step's draws stay plain: it is what the kernel, which hashes
+    # in its own threefry (csrc/systems.cu), is held to.
+    k = rng.fold_in(rng.fold_in(world_keys, t, use_kernels=False), SALT_FOOD,
+                    use_kernels=False)
+    gate = rng.randint(rng.fold_in(k, 0, use_kernels=False), (), 0, 10, use_kernels=False)
+    n = rng.randint(rng.fold_in(k, 1, use_kernels=False), (), 1, 3, use_kernels=False)
     hi = const([cfg.num_chunks_x, cfg.num_chunks_y, cfg.chunk_width,
                 cfg.chunk_width], torch.int64, dev)
-    per = [rng.randint(rng.fold_in(k, 2 + j), (4,), 0, hi) for j in range(2)]
+    per = [rng.randint(rng.fold_in(k, 2 + j, use_kernels=False), (4,), 0, hi,
+                       use_kernels=False) for j in range(2)]
     n_eff = torch.minimum(n, (cfg.total_allowed_food - num_food).clamp(min=0))
     gate_ok = gate == 0
 
@@ -322,9 +326,12 @@ def surrounding_observation(posx, posy, alive, chunk_agents, chunk_speed,
 
 def respawn_draws(world_keys, t, cfg: EnvConfig) -> torch.Tensor:
     """Respawn position draws, [W, NS, respawn_floor, 2] f32."""
-    base = rng.fold_in(rng.fold_in(world_keys, t), SALT_RESPAWN)
+    # Plain draws, as in `food_spawn`.
+    base = rng.fold_in(rng.fold_in(world_keys, t, use_kernels=False), SALT_RESPAWN,
+                       use_kernels=False)
     lims = const([cfg.world_lim_x, cfg.world_lim_y], f32, world_keys.device)
-    return torch.stack([rng.uniform(rng.fold_in(base, s), (cfg.respawn_floor, 2)) * lims
+    return torch.stack([rng.uniform(rng.fold_in(base, s, use_kernels=False),
+                                    (cfg.respawn_floor, 2), use_kernels=False) * lims
                         for s in range(cfg.num_species)], dim=1)
 
 

@@ -170,7 +170,8 @@ def policy_forward(model, flat: torch.Tensor, obs: torch.Tensor,
 
 def _species_grad(model, ts: SpeciesTrainState, obs_cur, obs_prev, mem_cur, mem_prev,
                   prev_actions, rewards, mask, key, gamma: float, proper_log_probs: bool,
-                  compute_dtype=None, loss_mask=None, loss_denom=None, offset: int = 0):
+                  compute_dtype=None, loss_mask=None, loss_denom=None, offset: int = 0,
+                  use_kernels: bool = True):
     """One species' gradient on [N, ...] rows, or every species' at once:
     with `model` a `StackedActorCritic`, `ts` its stacked train state, rows
     [NS, N, ...] and `key` [NS, 2] (species s samples with its own key), one
@@ -180,10 +181,11 @@ def _species_grad(model, ts: SpeciesTrainState, obs_cur, obs_prev, mem_cur, mem_
     previous transition (SPEC D9). `loss_denom` (default: `loss_mask`'s row
     count) is the critic mean's denominator and `offset` the first row's
     flat index in the global action draw: a shard passes both over every
-    rank. Returns (gradient, sampled actions [..., N], new memory [..., N,
-    H] f32, metric sums [..., 5]: actor loss, critic loss, sum of the taken
-    actions' log-probabilities and of the entropies over `mask`, `mask`'s
-    row count; `policy_metrics` turns them into the tick's metrics)."""
+    rank. `use_kernels=False` draws with the plain threefry. Returns
+    (gradient, sampled actions [..., N], new memory [..., N, H] f32, metric
+    sums [..., 5]: actor loss, critic loss, sum of the taken actions'
+    log-probabilities and of the entropies over `mask`, `mask`'s row count;
+    `policy_metrics` turns them into the tick's metrics)."""
     if loss_mask is None:
         loss_mask = mask
 
@@ -193,7 +195,7 @@ def _species_grad(model, ts: SpeciesTrainState, obs_cur, obs_prev, mem_cur, mem_
     with torch.no_grad(), profiling.span("mbots.learn.forward"):
         logits, v_new, new_mem = fwd(ts.params, obs_cur, mem_cur)
     with profiling.span("mbots.learn.draw"):
-        actions = rng.categorical(key, logits, offset)
+        actions = rng.categorical(key, logits, offset, use_kernels)
 
     flat = ts.params.detach().requires_grad_(True)
     with torch.enable_grad(), profiling.span("mbots.learn.grad"):
@@ -425,10 +427,10 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
             Wg, offset = cfg.num_worlds, lo * rows * NUM_ACTIONS
             (loss_denom,) = mesh.reduce_sum([loss_mask.sum(dim=-1)])
         if stacked:
-            keys = rng.fold_in(key, torch.arange(NS, device=key.device))
+            keys = rng.fold_in(key, torch.arange(NS, device=key.device), use_kernels)
             grad, actions, new_mem, sums = _species_grad(
                 sac, train_states, *up, mask, keys, gamma, proper_log_probs,
-                compute_dtype, loss_mask, loss_denom, offset)
+                compute_dtype, loss_mask, loss_denom, offset, use_kernels)
             if mesh is not None:
                 (grad,) = mesh.reduce_sum([grad])
             with profiling.span("mbots.learn.adam"):
@@ -436,9 +438,10 @@ def make_train_tick(models: Sequence[ActorCritic], cfg: EnvConfig,
                                                              train_states.params))
         else:
             outs = [_species_grad(models[s], train_states[s], *(x[s] for x in up), mask[s],
-                                  rng.fold_in(key, s), gamma, proper_log_probs, compute_dtype,
-                                  loss_mask[s], None if loss_denom is None else loss_denom[s],
-                                  offset)
+                                  rng.fold_in(key, s, use_kernels), gamma, proper_log_probs,
+                                  compute_dtype, loss_mask[s],
+                                  None if loss_denom is None else loss_denom[s], offset,
+                                  use_kernels)
                     for s in range(NS)]
             grads = [o[0] for o in outs]
             if mesh is not None:

@@ -230,12 +230,12 @@ class PPOTrainer:
                 return None, None, value, None, obs
             # A shard draws rows [lo * Asub, hi * Asub) of each species'
             # global draw.
-            off = self.lo * Asub * NUM_ACTIONS
+            off, uk = self.lo * Asub * NUM_ACTIONS, self.use_kernels
             if self.sac is not None:
-                a = rng.categorical(rng.fold_in(key, torch.arange(NS, device=key.device)),
-                                    logits, off)
+                a = rng.categorical(rng.fold_in(key, torch.arange(NS, device=key.device), uk),
+                                    logits, off, uk)
             else:
-                a = torch.stack([rng.categorical(rng.fold_in(key, s), logits[s], off)
+                a = torch.stack([rng.categorical(rng.fold_in(key, s, uk), logits[s], off, uk)
                                  for s in range(NS)])
             lp = torch.gather(F.log_softmax(logits, dim=-1), -1, a[..., None])[..., 0]
             new_hidden = unst(h * m[..., None].to(h.dtype))
@@ -302,7 +302,7 @@ class PPOTrainer:
                         action=buf(W, A, dtype=torch.int8), logp=buf(W, A), value=buf(W, A))
         recs.update(slot_domain)
         for t in range(T):
-            key, k_act = rng.split(key, 2)
+            key, k_act = rng.split(key, 2, self.use_kernels)
             action, logp, value, new_hidden, obs = self.policy_step(params, state, k_act)
             recs["alive"][t].copy_(state.alive)
             if self.rec_mode:
@@ -339,7 +339,8 @@ class PPOTrainer:
         """The iteration's roll of the B rows: `randint(fold_in(key, 777),
         (), 0, B)`, 0 without decorrelate."""
         if self.decorrelate:
-            return rng.randint(rng.fold_in(key, 777), (), 0, B).to(torch.int64)
+            uk = self.use_kernels
+            return rng.randint(rng.fold_in(key, 777, uk), (), 0, B, uk).to(torch.int64)
         return torch.zeros((), dtype=torch.int64, device=dev)
 
     def minibatch_order(self, key, B: int, dev) -> torch.Tensor:

@@ -31,9 +31,10 @@ The graph runs the eager launches in their order, on the same inputs, so
 its results equal the eager ones.
 
 Counters count real ticks. The capture counts the tick's counters
-(`learn_ticks`, `learner_rows`) once, as the eager tick would, and each
-later replay adds what the capture counted. `tick_graph_captures` counts
-captures, `tick_graph_replays` replays (the capturing call's included).
+(`learn_ticks`, `learner_rows`, `rng_kernel_calls`) once, as the eager
+tick would, and each later replay adds what the capture counted.
+`tick_graph_captures` counts captures, `tick_graph_replays` replays (the
+capturing call's included).
 The kernels' own launch tallies (`ops/*_cuda.launches`) count wrapper
 calls, so they leave replays out. Nothing is captured while a profiler
 records, and the spans inside the graph are not recorded on a replay: the

@@ -15,7 +15,8 @@ tracing is wall-clock step timing streamed to wandb (SURVEY §5). Here:
   and `host_syncs` (each blocking device-to-host read, `host_sync`), the
   export-row kernel's wrapper `export_launches`, the A2C tick
   `learn_ticks` and `learner_rows`, the CLI's loop graph
-  (`learn/tick_graph.py`) `tick_graph_captures` and `tick_graph_replays`.
+  (`learn/tick_graph.py`) `tick_graph_captures` and `tick_graph_replays`,
+  the counter RNG (`rng.py`) `rng_kernel_calls` and `rng_plain_calls`.
 - `device_trace(logdir)`: a profiler over a block, written for TensorBoard,
   so an operator sees the spans beside the host and card timelines.
 """

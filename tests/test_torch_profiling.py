@@ -34,6 +34,15 @@ STEP_SPANS = ("mbots.manager.step", "mbots.manager.flush", "mbots.env.systems",
               "mbots.manager.gather", "mbots.manager.shift", "mbots.sync.species_starts",
               "mbots.sync.nonzero")
 """The spans of one benchmark-shaped call."""
+ENV_DRAWS = 32
+"""rng calls of one plain env step (all on the plain threefry), each
+`fold_in`, `random_bits` or `threefry2x32` one: the food spawn's 22 (two
+key folds, then for each of its four draws a fold and a `randint`'s two
+hashes and two word draws) and the respawn's 10 (two key folds, then a fold
+and a `uniform` for each of the 4 species)."""
+TICK_DRAWS = 1 + 4 + 4
+"""rng calls of one A2C epoch besides its env step: the loop's key split,
+a species key fold and a categorical draw for each of the 4 species."""
 
 
 def manager(seed=5):
@@ -129,10 +138,10 @@ def test_host_syncs_two_per_benchmark_call():
     profiling.reset_counts()
     for i in range(3):
         benchmark_call(mgr, i)
-    assert profiling.counts() == {"steps": 3, "host_syncs": 6}
+    assert profiling.counts() == {"steps": 3, "host_syncs": 6, "rng_plain_calls": 3 * ENV_DRAWS}
     mgr.agent_offset_for_world(2)
     mgr.position_tensor(True).to_numpy()
-    assert profiling.counts() == {"steps": 3, "host_syncs": 8}
+    assert profiling.counts() == {"steps": 3, "host_syncs": 8, "rng_plain_calls": 3 * ENV_DRAWS}
 
 
 def test_profiler_leaves_the_run_unchanged():
@@ -189,14 +198,16 @@ def test_a2c_loop_spans_under_the_profiler_only(monkeypatch):
 
 def test_a2c_counters_and_one_sync_a_cli_epoch(tmp_path):
     """`learn_ticks` and `learner_rows` count 1 and W x 128 a tick (262,144
-    at the benchmark's 2048 worlds), and the CLI's loop reads the card once
-    an epoch."""
+    at the benchmark's 2048 worlds), the CLI's loop reads the card once an
+    epoch, and on the CPU every rng call of an epoch runs the plain
+    threefry."""
     tick, state, ts, key = a2c_loop(num_worlds=3)
     profiling.reset_counts()
     for _ in range(2):
         state, ts, key, _ = training_loop.run_tick(tick, state, ts, key)
     assert profiling.counts() == {"learn_ticks": 2, "learner_rows": 2 * 3 * 128,
-                                  "host_syncs": 2}
+                                  "host_syncs": 2,
+                                  "rng_plain_calls": 2 * (ENV_DRAWS + TICK_DRAWS)}
     profiling.reset_counts()
     training_loop.main(["--num_worlds", "2", "--num_epochs", "3", "--hidden_dim", "32",
                         "--create_universe", "--universe_id", "s", "--device", "cpu",

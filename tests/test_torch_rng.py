@@ -132,3 +132,79 @@ def test_categorical_matches_jitted_jax(seed):
         g_want = jax.jit(lambda k: jax.random.gumbel(k, (4096, 6)))(jk)
         np.testing.assert_allclose(rng.gumbel(tk, (4096, 6)).numpy(), np.asarray(g_want),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _cpu_calls():
+    k, ks = rng.key(5), rng.fold_in(rng.key(5)[None], torch.arange(4)[:, None])
+    logits = torch.randn(4, 9, 6, generator=torch.Generator().manual_seed(0))
+    b = torch.tensor(0.5)
+    # (name, call, its plain version, rng calls it counts)
+    return [
+        ("threefry2x32", lambda uk: rng.threefry2x32(k[0], k[1], 0, 7, uk),
+         lambda: rng.threefry2x32_reference(k[0], k[1], 0, 7), 1),
+        ("fold_in", lambda uk: rng.fold_in(ks, torch.arange(4, dtype=torch.int32)[:, None], uk),
+         lambda: rng.fold_in_reference(ks, torch.arange(4, dtype=torch.int32)[:, None]), 1),
+        ("split", lambda uk: rng.split(k, 3, uk),
+         lambda: rng.fold_in_reference(k[None], torch.arange(3)), 1),
+        ("random_bits", lambda uk: rng.random_bits(ks, (2, 3), 7, uk),
+         lambda: rng.random_bits_reference(ks, (2, 3), 7), 1),
+        ("uniform", lambda uk: rng.uniform(k, (5,), -b, b, use_kernels=uk), None, 1),
+        ("gumbel", lambda uk: rng.gumbel(ks, (3,), 2, uk), None, 1),
+        ("categorical", lambda uk: rng.categorical(ks, logits, 12, uk),
+         lambda: rng.categorical_reference(ks, logits, 12), 1),
+        ("randint", lambda uk: rng.randint(k, (4,), 0, 9, uk), None, 4),
+    ]
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("case", range(len(_cpu_calls())),
+                         ids=[c[0] for c in _cpu_calls()])
+def test_cpu_calls_run_and_count_the_plain_version(case, use_kernels, monkeypatch):
+    """On CPU tensors (and with use_kernels=False) every rng call runs the
+    plain int64 threefry, never the kernel's wrapper, and counts its calls
+    in `rng_plain_calls`."""
+    from madrona_bots_tpu_torch.ops import threefry_cuda
+    from madrona_bots_tpu_torch.utils import profiling
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU call reached the threefry kernel")
+    for name in ("threefry2x32", "words", "categorical", "gumbel"):
+        monkeypatch.setattr(threefry_cuda, name, refuse)
+    _, call, plain, calls = _cpu_calls()[case]
+    profiling.reset_counts()
+    got = call(use_kernels)
+    assert profiling.counts() == {"rng_plain_calls": calls}
+    if plain is not None:
+        want = plain()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("call", ["threefry2x32", "words", "categorical", "gumbel"])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    from madrona_bots_tpu_torch.ops import threefry_cuda
+
+    k = rng.key(1)
+    args = {"threefry2x32": (k[0], k[1], 0, 3), "words": (k, (4,)),
+            "categorical": (k, torch.zeros(3, 6)), "gumbel": (k,)}[call]
+    launches = threefry_cuda.launches
+    with pytest.raises(ValueError, match="threefry kernel"):
+        getattr(threefry_cuda, call)(*args)
+    assert threefry_cuda.launches == launches
+
+
+@pytest.mark.parametrize("counts,want", [
+    ({}, None), ({"learn_ticks": 8}, 0.0),
+    ({"learn_ticks": 8, "rng_plain_calls": 72}, 0.0),
+    ({"learn_ticks": 8, "rng_kernel_calls": 72}, 1.0),
+    ({"learn_ticks": 8, "rng_kernel_calls": 60, "rng_plain_calls": 20}, 0.75)],
+    ids=["no-ticks", "no-counters", "plain", "kernel", "both"])
+def test_rng_kernel_share_reader(counts, want):
+    """0 from a program without the counters (the parent), the kernel's
+    share of the counted calls with them, nothing without ticks."""
+    from portbench import core
+
+    run = type("Run", (), {"traced_calls": 20,
+                           "driver": type("D", (), {"counts": counts})()})()
+    assert core.plugin("metrics", "a2c.rng_kernel_share").read(run) == want
